@@ -1,0 +1,162 @@
+"""Build, bind and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C entry point and is compiled on first use
+with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
+under ``build/torch_kernels/`` of the checkout, then loaded with ``ctypes``.
+Nothing is compiled or loaded at import time, so the package imports on a
+machine without a GPU or a CUDA toolkit.
+
+Every wrapper in ``ops/`` and ``nn/`` decides its path the same way
+(:func:`use_kernel`): a CPU tensor takes the plain PyTorch version, a CUDA
+tensor launches the kernel or raises. :func:`reference_ops` forces the plain
+versions on CUDA tensors too, so that a run can hold the kernels against them.
+``launches`` counts kernel launches per kernel name; only a wrapper that has
+just launched its kernel adds to it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Iterator
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> (C entry point, argtypes)
+_ENTRY = {
+    "nn_distance": ("nn_one_way_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "fps": ("fps_launch", [_P, _P, _I, _I, _I, _P]),
+    "flash_attn": (
+        "flash_attn_fwd_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    ),
+}
+KERNEL_NAMES = tuple(_ENTRY)
+
+launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+_plain_forced = False
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+@contextlib.contextmanager
+def reference_ops() -> Iterator[None]:
+    """Run every wrapper's plain PyTorch version, on CUDA tensors too."""
+    global _plain_forced
+    prev = _plain_forced
+    _plain_forced = True
+    try:
+        yield
+    finally:
+        _plain_forced = prev
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True: launch the kernel (CUDA tensor). False: plain version (CPU
+    tensor, or inside :func:`reference_ops`). Other devices raise."""
+    if t.device.type == "cuda":
+        return not _plain_forced
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel and no plain path for device {t.device}")
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def _compile(name: str) -> Path:
+    out = _lib_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def build(names=KERNEL_NAMES) -> float:
+    """Compile (one nvcc per source, all at once) and load the kernels.
+    Returns the wall seconds it took; already-loaded kernels cost nothing."""
+    t0 = time.perf_counter()
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        if todo:
+            with ThreadPoolExecutor(len(todo)) as pool:
+                paths = list(pool.map(_compile, todo))
+            for name, path in zip(todo, paths):
+                lib = ctypes.CDLL(str(path))
+                fn_name, argtypes = _ENTRY[name]
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _libs[name] = lib
+    return time.perf_counter() - t0
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry point on ``device``'s current stream
+    (the stream goes last) and count the launch; raises on a CUDA error."""
+    if name not in _libs:
+        build((name,))
+    fn_name, _ = _ENTRY[name]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_libs[name], fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    launches[name] += 1
+
+
+def check_cuda_input(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+                     align: int = 4) -> None:
+    """The kernels take contiguous CUDA tensors of one dtype whose data
+    pointer is a multiple of ``align`` bytes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a contiguous, {align}-byte aligned tensor")

@@ -1,0 +1,71 @@
+"""Helpers that hold the PyTorch port against the JAX package on the CPU.
+
+Inputs and weights come from numpy seeds and go to both sides as numpy
+arrays. A test module that imports :func:`jax_reference_modes` and lists it in
+``pytestmark`` runs JAX with exact kNN and without the Pallas flash path.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from svdformer_pointsea_tpu import nn as jnn
+from svdformer_pointsea_tpu import ops as jops
+from svdformer_pointsea_tpu.nn import layers as jax_layers
+from svdformer_pointsea_tpu.ops import distances as jax_distances
+from svdformer_pointsea_tpu_torch.train.convert import params_from_jax
+
+
+@pytest.fixture(scope="module")
+def jax_reference_modes():
+    """Exact kNN and no Pallas flash attention in the JAX package for one
+    test module; the modes it had come back afterwards."""
+    knn, flash = jax_distances._KNN_MODE, jax_layers._FLASH_ENABLED
+    jops.set_knn_mode("exact")
+    jnn.set_flash_attention(False)
+    yield
+    jops.set_knn_mode(knn)
+    jnn.set_flash_attention(flash)
+
+
+def jax_variables(module, *args, seed: int = 0, **kwargs):
+    """Random numpy variables for a flax ``module`` (shapes from
+    ``eval_shape``, so nothing is compiled): Dense / Conv kernels ~ N(0, 1/fan_in),
+    biases and BatchNorm shifts ~ 0.1 N(0, 1), scales ~ 1 + 0.1 N(0, 1), running
+    means ~ 0.1 N(0, 1), running variances ~ U(0.5, 1.5)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args, **kwargs)
+    rng = np.random.RandomState(seed)
+
+    def fill(path, s):
+        name = path[-1].key
+        if name == "var":
+            v = rng.uniform(0.5, 1.5, s.shape)
+        elif name in ("mean", "bias"):
+            v = 0.1 * rng.randn(*s.shape)
+        elif name == "scale":
+            v = 1.0 + 0.1 * rng.randn(*s.shape)
+        else:
+            v = rng.randn(*s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def load_port(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Load JAX ``variables`` into the port ``module`` (strict) in eval mode."""
+    module.load_state_dict(params_from_jax(variables), strict=True)
+    return module.eval()
+
+
+def t(x) -> torch.Tensor:
+    """numpy / JAX array -> CPU torch tensor (a copy)."""
+    return torch.from_numpy(np.array(x))
+
+
+def close(port_out, jax_out, atol: float, rtol: float = 0.0) -> None:
+    np.testing.assert_allclose(
+        port_out.detach().numpy() if isinstance(port_out, torch.Tensor) else np.asarray(port_out),
+        np.asarray(jax_out), atol=atol, rtol=rtol)
