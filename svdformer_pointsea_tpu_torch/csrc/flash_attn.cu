@@ -4,13 +4,17 @@
 // (flash_attention_di128 / _fwd) runs through jax.experimental.pallas.ops.tpu
 // .flash_attention._flash_attention, entered from nn/layers.py::_scaled_attention.
 // It computes O = softmax(Q K^T * scale) V, non-causal, with no bias and no
-// segment ids. The l / m residuals that the backward kernels (K4, K5) need are
-// not written: they arrive with the training slice.
+// segment ids. For training it also writes each query row's softmax
+// statistic, the log-sum-exp LSE = m + log(l) of the scaled logits (m the row
+// max, l = sum exp(s - m), upstream's two residuals folded into one), which
+// the backward kernels K4 / K5 (flash_attn_bwd.cu) read as P = exp(s - LSE).
+// With a null `lse` pointer (evaluation) nothing but O is written.
 //
 // Layout: q (B, Lq, H, D), k and v (B, Lk, H, D), o (B, Lq, H, D), all
 // contiguous f32 -- the port's channels-last attention layout, read in place
-// so no transpose runs around the call. Lq and Lk are multiples of 64
-// (the dispatcher only sends multiples of 512); D is 64, 96, 128 or 256.
+// so no transpose runs around the call; lse (B, H, Lq) f32 or null. Lq and
+// Lk are multiples of 64 (the dispatcher only sends multiples of 512); D is
+// 64, 96, 128 or 256.
 //
 // What bounds it on an H100: the evaluation path is f32 for parity, so the
 // tensor cores' TF32 mode is off the table (it keeps ~3 decimal digits) and
@@ -62,8 +66,8 @@ __device__ __forceinline__ void load_transposed(float* dst, const float* src, si
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int heads, int lq,
-                 int lk, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int heads, int lq, int lk, float scale) {
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -173,36 +177,43 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
   }
+  // Every lane of a row group holds the same m and l after the shuffles.
+  if (lse != nullptr && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      lse[((size_t)b * heads + h) * lq + q0 + ty * 4 + i] = m[i] + logf(l[i]);
+  }
 }
 
 template <int D>
-int launch(const float* q, const float* k, const float* v, float* o, int batch, int heads,
-           int lq, int lk, float scale, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
+           int heads, int lq, int lk, float scale, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(lq / kBQ, heads, batch);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, heads, lq, lk, scale);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, heads, lq, lk, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Lq, H, D), k/v (B, Lk, H, D), o (B, Lq, H, D): contiguous f32 on the
-// device. Lq, Lk multiples of 64; D in {64, 96, 128, 256}. Launches on
-// `stream`; returns a CUDA error code (0 on success).
+// device; lse (B, H, Lq) f32, or null to skip the statistics. Lq, Lk
+// multiples of 64; D in {64, 96, 128, 256}. Launches on `stream`; returns a
+// CUDA error code (0 on success).
 extern "C" int flash_attn_fwd_launch(const float* q, const float* k, const float* v, float* o,
-                                     int batch, int heads, int lq, int lk, int head_dim,
-                                     float scale, void* stream) {
+                                     float* lse, int batch, int heads, int lq, int lk,
+                                     int head_dim, float scale, void* stream) {
   if (lq % kBQ != 0 || lk % kBK != 0 || lk <= 0) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || heads <= 0 || lq <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   switch (head_dim) {
-    case 64: return launch<64>(q, k, v, o, batch, heads, lq, lk, scale, s);
-    case 96: return launch<96>(q, k, v, o, batch, heads, lq, lk, scale, s);
-    case 128: return launch<128>(q, k, v, o, batch, heads, lq, lk, scale, s);
-    case 256: return launch<256>(q, k, v, o, batch, heads, lq, lk, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, batch, heads, lq, lk, scale, s);
+    case 96: return launch<96>(q, k, v, o, lse, batch, heads, lq, lk, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, batch, heads, lq, lk, scale, s);
+    case 256: return launch<256>(q, k, v, o, lse, batch, heads, lq, lk, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,13 @@
 """Build, bind and count the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C entry point and is compiled on first use
-with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
-under ``build/torch_kernels/`` of the checkout, then loaded with ``ctypes``.
-Nothing is compiled or loaded at import time, so the package imports on a
-machine without a GPU or a CUDA toolkit.
+Each ``csrc/<source>.cu`` has plain C entry points and is compiled on first
+use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
+library under ``build/torch_kernels/`` of the checkout, then loaded with
+``ctypes``. One source may hold several kernels (``flash_attn_bwd.cu``: K4 and
+K5) or serve two kernel names (``flash_attn.cu``: K3 without and with its row
+statistics), each with its own launch counter. Nothing is compiled or loaded
+at import time, so the package imports on a machine without a GPU or a CUDA
+toolkit.
 
 Every wrapper in ``ops/`` and ``nn/`` decides its path the same way
 (:func:`use_kernel`): a CPU tensor takes the plain PyTorch version, a CUDA
@@ -39,20 +42,28 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> (C entry point, argtypes)
+_F = ctypes.c_float
+# kernel name -> (source csrc/<source>.cu, C entry point, argtypes). A source
+# may serve several names: the name is what the launch counters count.
 _ENTRY = {
-    "nn_distance": ("nn_one_way_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "fps": ("fps_launch", [_P, _P, _I, _I, _I, _P]),
-    "flash_attn": (
-        "flash_attn_fwd_launch",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    ),
+    "nn_distance": ("nn_distance", "nn_one_way_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "fps": ("fps", "fps_launch", [_P, _P, _I, _I, _I, _P]),
+    # K3 without and with the row statistics (one kernel, lse null or not).
+    "flash_attn": ("flash_attn", "flash_attn_fwd_launch",
+                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_attn_stats": ("flash_attn", "flash_attn_fwd_launch",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_attn_bwd_dkv": ("flash_attn_bwd", "flash_attn_bwd_dkv_launch",
+                           [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_attn_bwd_dq": ("flash_attn_bwd", "flash_attn_bwd_dq_launch",
+                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
 }
 KERNEL_NAMES = tuple(_ENTRY)
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in _ENTRY.values()))
 
 launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}  # source -> loaded library
 _lock = threading.Lock()
 _plain_forced = False
 
@@ -95,54 +106,54 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _lib_path(source: str) -> Path:
+    src = (CSRC / f"{source}.cu").read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    return BUILD_DIR / f"lib{source}-{tag}.so"
 
 
-def _compile(name: str) -> Path:
-    out = _lib_path(name)
+def _compile(source: str) -> Path:
+    out = _lib_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed for {source}.cu:\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def build(names=KERNEL_NAMES) -> float:
+def build(sources=SOURCES) -> float:
     """Compile (one nvcc per source, all at once) and load the kernels.
-    Returns the wall seconds it took; already-loaded kernels cost nothing."""
+    Returns the wall seconds it took; already-loaded sources cost nothing."""
     t0 = time.perf_counter()
     with _lock:
-        todo = [n for n in names if n not in _libs]
+        todo = [src for src in sources if src not in _libs]
         if todo:
             with ThreadPoolExecutor(len(todo)) as pool:
                 paths = list(pool.map(_compile, todo))
-            for name, path in zip(todo, paths):
-                lib = ctypes.CDLL(str(path))
-                fn_name, argtypes = _ENTRY[name]
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _libs[name] = lib
+            for src, path in zip(todo, paths):
+                _libs[src] = ctypes.CDLL(str(path))
+            for src, fn_name, argtypes in _ENTRY.values():
+                if src in todo:
+                    fn = getattr(_libs[src], fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
     return time.perf_counter() - t0
 
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call kernel ``name``'s C entry point on ``device``'s current stream
     (the stream goes last) and count the launch; raises on a CUDA error."""
-    if name not in _libs:
-        build((name,))
-    fn_name, _ = _ENTRY[name]
+    src, fn_name, _ = _ENTRY[name]
+    if src not in _libs:
+        build((src,))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_libs[name], fn_name)(*args, stream)
+        err = getattr(_libs[src], fn_name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     launches[name] += 1

@@ -1,5 +1,6 @@
 """Neural building blocks and the SVDFormer model (channels-last)."""
 
+from svdformer_pointsea_tpu_torch.nn.flash import FlashAttention, flash_attention_train
 from svdformer_pointsea_tpu_torch.nn.layers import (
     PCSA,
     BatchNorm,
@@ -12,14 +13,17 @@ from svdformer_pointsea_tpu_torch.nn.layers import (
     SelfAttentionBlock,
     SharedMLP,
     SinusoidalPositionalEmbedding,
+    bn_row_weights,
     flash_attention,
     naive_attention,
     scaled_attention,
 )
 from svdformer_pointsea_tpu_torch.nn.resnet import BasicBlock, ImageTrunk
-from svdformer_pointsea_tpu_torch.nn.svdformer import SVDFormer, init_parameters
+from svdformer_pointsea_tpu_torch.nn.svdformer import SVDFormer, has_zero_gradient, init_parameters
 
 __all__ = [
+    "FlashAttention",
+    "flash_attention_train",
     "PCSA",
     "BatchNorm",
     "CrossAttentionBlock",
@@ -31,11 +35,13 @@ __all__ = [
     "SelfAttentionBlock",
     "SharedMLP",
     "SinusoidalPositionalEmbedding",
+    "bn_row_weights",
     "flash_attention",
     "naive_attention",
     "scaled_attention",
     "BasicBlock",
     "ImageTrunk",
     "SVDFormer",
+    "has_zero_gradient",
     "init_parameters",
 ]

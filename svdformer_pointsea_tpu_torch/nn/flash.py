@@ -1,0 +1,147 @@
+"""Attention over (B, L, h, dh) with the flash kernels K3, K4 and K5.
+
+Counterpart of svdformer_pointsea_tpu/nn/flash_vjp.py. Every function takes
+and returns the port's channels-last layout: q, o, dq (B, Lq, h, dh); k, v,
+dk, dv (B, Lk, h, dh); the per-row softmax statistic ``lse`` and the backward
+term ``di`` are (B, h, Lq) f32.
+
+- :func:`flash_attention`: O only (kernel K3), for evaluation;
+- :class:`FlashAttention`: the differentiable version for training. Its
+  forward launches K3 with the row statistics (``lse``, the log-sum-exp of
+  the scaled logits: upstream's ``m`` + log ``l``) and saves q, k, v, o and
+  lse; its backward launches K5 (dQ) and K4 (dK, dV).
+
+Each kernel has a plain PyTorch version beside it, written out from the same
+formulas (not autograd): :func:`naive_attention`, :func:`attention_fwd_plain`,
+:func:`attention_bwd_dkv_plain`, :func:`attention_bwd_dq_plain`. A CPU tensor
+takes them; a CUDA tensor launches the kernel or raises
+(``kernels.use_kernel``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from svdformer_pointsea_tpu_torch import kernels
+
+FLASH_HEAD_DIMS = (64, 96, 128, 256)
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q kᵀ / sqrt(dh)) v over (B, L, h, dh); the plain version of K3."""
+    attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    return torch.einsum("bhqk,bkhd->bqhd", attn.softmax(dim=-1), v)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """S = q kᵀ · scale, (B, h, Lq, Lk)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(o, lse): the plain version of K3 with its row statistics."""
+    s = _scores(q, k)
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]), v)
+    return o, lse
+
+
+def _dscores(q, k, v, lse, do, di):
+    """(P = exp(S − lse), dS = P ∘ (dO vᵀ − di)), both (B, h, Lq, Lk)."""
+    p = torch.exp(_scores(q, k) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    return p, p * (dp - di[..., None])
+
+
+def attention_bwd_dkv_plain(q, k, v, lse, do, di):
+    """(dk, dv) from the forward's residuals: the plain version of K4."""
+    p, ds = _dscores(q, k, v, lse, do, di)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * (1.0 / math.sqrt(q.shape[-1]))
+    return dk, dv
+
+
+def attention_bwd_dq_plain(q, k, v, lse, do, di):
+    """dq from the forward's residuals: the plain version of K5."""
+    _, ds = _dscores(q, k, v, lse, do, di)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k) * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
+    for t, arg in ((q, "q"), (k, "k"), (v, "v")):
+        kernels.check_cuda_input(t, f"{name} {arg}", torch.float32, 4, align=16)  # float4 loads
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    if k.shape != (B, Lk, H, D) or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if D not in FLASH_HEAD_DIMS or Lq % 64 or Lk % 64 or Lk == 0:
+        raise ValueError(f"{name} takes dh in {FLASH_HEAD_DIMS} and lengths % 64 == 0, "
+                         f"got dh {D}, Lq {Lq}, Lk {Lk}")
+    return B, Lq, Lk, H, D
+
+
+def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stats: bool = False):
+    """K3: o, or (o, lse) with ``stats``."""
+    name = "flash_attn_stats" if stats else "flash_attn"
+    B, Lq, Lk, H, D = _check(q, k, v, name)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device) if stats else None
+    kernels.launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   None if lse is None else lse.data_ptr(), B, H, Lq, Lk, D, 1.0 / math.sqrt(D))
+    return (out, lse) if stats else out
+
+
+def _bwd_kernels(q, k, v, lse, do, di):
+    """K5 then K4: (dq, dk, dv)."""
+    B, Lq, Lk, H, D = _check(q, k, v, "flash_attn_bwd")
+    for t, arg, shape in ((do, "do", q.shape), (lse, "lse", (B, H, Lq)), (di, "di", (B, H, Lq))):
+        kernels.check_cuda_input(t, f"flash_attn_bwd {arg}", torch.float32, len(shape), align=16)
+        if t.shape != shape:
+            raise ValueError(f"flash_attn_bwd {arg}: expected {tuple(shape)}, got {tuple(t.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptrs = [t.data_ptr() for t in (q, k, v, lse, do, di)]
+    scale = 1.0 / math.sqrt(D)
+    kernels.launch("flash_attn_bwd_dq", q.device, *ptrs, dq.data_ptr(), B, H, Lq, Lk, D, scale)
+    kernels.launch("flash_attn_bwd_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
+                   B, H, Lq, Lk, D, scale)
+    return dq, dk, dv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention over (B, L, h, dh), no gradient: K3 on CUDA, the naive math on CPU."""
+    if kernels.use_kernel(q):
+        return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous())
+    return naive_attention(q, k, v)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention: K3 with statistics forward, K5 + K4 backward
+    (the plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if kernels.use_kernel(q):
+            o, lse = _flash_kernel(q, k, v, stats=True)
+        else:
+            o, lse = attention_fwd_plain(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        # di = rowsum(o ∘ do), as flash_vjp.py computes it outside the kernels.
+        di = (o * do).sum(-1).transpose(1, 2).contiguous()
+        if kernels.use_kernel(q):
+            return _bwd_kernels(q, k, v, lse, do, di)
+        dk, dv = attention_bwd_dkv_plain(q, k, v, lse, do, di)
+        return attention_bwd_dq_plain(q, k, v, lse, do, di), dk, dv
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Differentiable attention over (B, L, h, dh) through :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v)

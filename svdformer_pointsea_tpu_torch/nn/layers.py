@@ -3,19 +3,20 @@
 Mirrors svdformer_pointsea_tpu/nn/layers.py. Attribute names follow the JAX
 parameter tree (``layer0``, ``norm13``, ``attn.q_proj`` ...), so a JAX tree
 maps onto a ``state_dict`` leaf by leaf (``train/convert.py``). Every
-LayerNorm uses flax's eps 1e-6, every GELU is the exact (erf) one, and
-BatchNorm runs in eval mode on its running statistics.
+LayerNorm uses flax's eps 1e-6 and every GELU is the exact (erf) one.
+BatchNorm normalises with its running statistics in eval mode and with
+weighted batch moments in train mode (rows weighted by :func:`bn_row_weights`).
 
 Attention goes through :func:`scaled_attention`, which sends CUDA inputs with
 at least 512 query tokens, both lengths multiples of 512 and a head dim of
-64, 96, 128 or 256 to kernel K3 (``csrc/flash_attn.cu``), as the JAX package
-sends them to its Pallas flash kernel, and everything else to the naive math.
+64, 96, 128 or 256 to the flash kernels (``nn/flash.py``), as the JAX package
+sends them to its Pallas flash kernels, and everything else to the naive math.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Optional, Sequence
+import contextlib
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,16 +24,48 @@ import torch.nn.functional as F
 from torch import nn
 
 from svdformer_pointsea_tpu_torch import kernels
+from svdformer_pointsea_tpu_torch.nn.flash import (
+    FLASH_HEAD_DIMS,
+    flash_attention,
+    flash_attention_train,
+    naive_attention,
+)
 from svdformer_pointsea_tpu_torch.ops import group_local, sample_and_group_all, sample_and_group_knn
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax EMA decay of the running statistics (torch momentum 0.1)
+
+# (B,) row weights of the train step's batch (0 for pad rows); None = all 1.
+_BN_ROW_WEIGHTS: Optional[torch.Tensor] = None
+
+
+@contextlib.contextmanager
+def bn_row_weights(weights: Optional[torch.Tensor]) -> Iterator[None]:
+    """Scope the (B,) row weights of a train step into every train-mode
+    :class:`BatchNorm`: a row of weight 0 adds nothing to the batch moments
+    (nn/layers.py::bn_row_weights of the JAX package)."""
+    global _BN_ROW_WEIGHTS
+    prev = _BN_ROW_WEIGHTS
+    _BN_ROW_WEIGHTS = weights
+    try:
+        yield
+    finally:
+        _BN_ROW_WEIGHTS = prev
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channel axis ``dim``, computed as flax does:
-    (x - mean) * (rsqrt(var + eps) * weight) + bias. Train mode (batch
-    moments, running-stat updates) comes with the training slice."""
+    """BatchNorm over channel axis ``dim``, computed as flax does.
+
+    Eval mode: (x - mean) * (rsqrt(var + eps) * weight) + bias on the running
+    statistics. Train mode (the JAX package's ``_WeightedBatchNorm``): with
+    row weights w, each covering k = len(x) / len(w) consecutive rows (the
+    image trunk folds B samples x 3 views batch-major), s0 = Σw·n_spatial,
+    s1 = Σw·x, s2 = Σw·x²; mean = s1 / s0 and the biased "fast" variance
+    s2 / s0 - mean². The output is x * mul + (bias - mean * mul), mul =
+    rsqrt(var + eps) * weight, and the running statistics move as
+    ra <- 0.9 ra + 0.1 batch, with the biased variance.
+    """
 
     def __init__(self, num_features: int, dim: int = -1, eps: float = BN_EPS):
         super().__init__()
@@ -43,13 +76,35 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _batch_moments(self, x: torch.Tensor):
+        w = _BN_ROW_WEIGHTS
+        if w is None:
+            w = torch.ones(x.shape[0], device=x.device)
+        k, rem = divmod(x.shape[0], w.shape[0])
+        if rem:
+            raise ValueError(f"BatchNorm: {x.shape[0]} rows for {w.shape[0]} row weights")
+        wf = w.to(torch.float32).repeat_interleave(k)
+        dim = self.dim % x.dim()
+        red = [d for d in range(x.dim()) if d != dim]
+        wb = wf.view(-1, *([1] * (x.dim() - 1)))
+        s0 = wf.sum() * (x[0].numel() // x.shape[dim])
+        mean = (wb * x).sum(red) / s0
+        var = (wb * x.square()).sum(red) / s0 - mean.square()
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("train-mode BatchNorm is not ported yet; call .eval()")
         shape = [1] * x.dim()
         shape[self.dim] = -1
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        mean, var = self._batch_moments(x)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * mul
+        return x * mul.view(shape) + shift.view(shape)
 
 
 class MLPConv(nn.Module):
@@ -98,36 +153,6 @@ class SharedMLP(nn.Module):
 
 _FLASH_MIN_Q = 512
 _FLASH_BLOCK = 512
-FLASH_HEAD_DIMS = (64, 96, 128, 256)
-
-
-def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q kᵀ / sqrt(dh)) v over (B, L, h, dh); the plain version of K3."""
-    attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
-    return torch.einsum("bhqk,bkhd->bqhd", attn.softmax(dim=-1), v)
-
-
-def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        kernels.check_cuda_input(t, f"flash_attn {name}", torch.float32, 4, align=16)  # float4 loads
-    B, Lq, H, D = q.shape
-    Lk = k.shape[1]
-    if k.shape != (B, Lk, H, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attn: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in FLASH_HEAD_DIMS or Lq % 64 or Lk % 64 or Lk == 0:
-        raise ValueError(f"flash_attn takes dh in {FLASH_HEAD_DIMS} and lengths % 64 == 0, "
-                         f"got dh {D}, Lq {Lq}, Lk {Lk}")
-    out = torch.empty_like(q)
-    kernels.launch("flash_attn", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   B, H, Lq, Lk, D, 1.0 / math.sqrt(D))
-    return out
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Attention over (B, L, h, dh): kernel K3 on CUDA, the naive math on CPU."""
-    if kernels.use_kernel(q):
-        return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous())
-    return naive_attention(q, k, v)
 
 
 def _flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
@@ -141,10 +166,14 @@ def _flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
 
 
 def scaled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q kᵀ / sqrt(dh)) v over (B, L, h, dh) tensors."""
-    if _flash_eligible(q, k):
-        return flash_attention(q, k, v)
-    return naive_attention(q, k, v)
+    """softmax(q kᵀ / sqrt(dh)) v over (B, L, h, dh) tensors. Eligible shapes
+    take K3 alone when no gradient is recorded, and K3 with its statistics
+    plus K4 / K5 in the backward when one is; the rest the naive math."""
+    if not _flash_eligible(q, k):
+        return naive_attention(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_attention_train(q, k, v)
+    return flash_attention(q, k, v)
 
 
 class MultiheadAttention(nn.Module):

@@ -10,6 +10,7 @@ layer reproduce theirs inline.
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 import torch.nn.functional as F
@@ -189,6 +190,20 @@ class SVDFormer(nn.Module):
         fine1 = self.refine1(local_feat, coarse_merge, feat_g, partial)
         fine2 = self.refine2(local_feat, fine1, feat_g, partial)
         return coarse, fine1, fine2
+
+
+_ZERO_GRADIENT = re.compile(
+    r".*attn\.k_proj\.bias|localencoder\.(gcn\d\.conv[01]|gcn1\.conv2)\.bias")
+
+
+def has_zero_gradient(name: str) -> bool:
+    """True for the SVDFormer parameters whose exact gradient is 0, so that
+    their computed gradient is rounding noise: every attention key-projection
+    bias (softmax removes a per-row constant) and each bias that reaches a
+    BatchNorm through linear maps only (EdgeConv's conv0 / conv1, and gcn1's
+    conv2, whose output enters gcn2's conv0; BatchNorm removes a per-channel
+    constant). Adam scales that noise up to steps of up to lr."""
+    return _ZERO_GRADIENT.fullmatch(name) is not None
 
 
 @torch.no_grad()

@@ -44,7 +44,7 @@ def _leaf(collection: str, key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX variables tree -> the port's ``state_dict`` (f32 CPU tensors)."""
+    """JAX variables tree -> the port's ``state_dict`` (f32 CPU tensors, copied)."""
     state: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: Tuple[str, ...], collection: str) -> None:
@@ -53,7 +53,7 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 walk(val, prefix + (key,), collection)
                 continue
             name, arr = _leaf(collection, key, np.asarray(val, dtype=np.float32))
-            state[".".join(prefix + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
+            state[".".join(prefix + (name,))] = torch.tensor(np.ascontiguousarray(arr))
 
     for collection in ("params", "batch_stats"):
         walk(variables.get(collection, {}), (), collection)

@@ -8,6 +8,7 @@ arrays. A test module that imports :func:`jax_reference_modes` and lists it in
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,6 +30,27 @@ def jax_reference_modes():
     yield
     jops.set_knn_mode(knn)
     jnn.set_flash_attention(flash)
+
+
+@pytest.fixture
+def jax_difference_form_nn(monkeypatch):
+    """The JAX package's NN search in the difference form for one test.
+
+    Off the TPU, the JAX package computes nearest distances in the matmul
+    form |a|² − 2a·b + |b|² (ops/distances.py:186-209), whose cancellation
+    error is ~1e-8 absolute: at a close pair that is a relative error of
+    1e-5 or more in d, and twice that in the gradient of sqrt(d). Its TPU
+    kernel K1 (ops/nn_pallas.py) and the port use the difference form
+    (dx·dx + dy·dy) + dz·dz, so a test of the loss's gradient holds the port
+    against that form.
+    """
+
+    def nn_one_way(a, b):
+        diff = a.astype(jnp.float32)[:, :, None, :] - b.astype(jnp.float32)[:, None, :, :]
+        d = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+        return jnp.min(d, axis=-1), jnp.argmin(d, axis=-1).astype(jnp.int32)
+
+    monkeypatch.setattr(jax_distances, "_nn_one_way", nn_one_way)
 
 
 def jax_variables(module, *args, seed: int = 0, **kwargs):

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from svdformer_pointsea_tpu_torch import kernels
+from svdformer_pointsea_tpu_torch.nn import flash
 from svdformer_pointsea_tpu_torch.nn.layers import (
     _flash_eligible,
     flash_attention,
@@ -16,10 +17,12 @@ from svdformer_pointsea_tpu_torch.nn.layers import (
     scaled_attention,
 )
 from svdformer_pointsea_tpu_torch.ops import (
+    chamfer_distance,
     furthest_point_sample,
     furthest_point_sample_ref,
     nn_one_way,
     nn_one_way_plain,
+    nn_squared_distance,
 )
 
 
@@ -58,7 +61,7 @@ def test_use_kernel_and_reference_ops():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from svdformer_pointsea_tpu_torch.nn.layers import _flash_kernel
+    from svdformer_pointsea_tpu_torch.nn.flash import _bwd_kernels, _flash_kernel
     from svdformer_pointsea_tpu_torch.ops.distances import _nn_one_way_kernel
     from svdformer_pointsea_tpu_torch.ops.fps import _fps_kernel
 
@@ -70,6 +73,29 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.rand(1, 64, 1, 64)
     with pytest.raises(ValueError, match="CUDA"):
         _flash_kernel(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        _flash_kernel(q, q, q, stats=True)
+    lse = torch.zeros(1, 1, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        _bwd_kernels(q, q, q, lse, q, lse)
+
+
+def test_cpu_training_attention_takes_the_plain_versions():
+    """With a gradient recorded, an eligible shape on the CPU still takes the
+    naive math (as the JAX package does off the TPU), and the flash Function
+    called directly runs its plain versions: no kernel launches."""
+    kernels.reset_launches()
+    q, k, v = (torch.randn(1, 512, 2, 64, requires_grad=True) for _ in range(3))
+    out = scaled_attention(q, k, v)
+    assert out.grad_fn is not None and "FlashAttention" not in type(out.grad_fn).__name__
+    out_f = flash.flash_attention_train(q, k, v)
+    assert "FlashAttention" in type(out_f.grad_fn).__name__
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out_f, (q, k, v), g)
+    want = torch.autograd.grad(naive_attention(q, k, v), (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+    assert all(n == 0 for n in kernels.launches.values())
 
 
 @pytest.mark.parametrize("lq,lk,dh,eligible", [
@@ -87,10 +113,12 @@ def test_flash_eligibility_is_a_shape_rule(monkeypatch, lq, lk, dh, eligible):
 
 
 def test_library_name_tracks_source_and_flags():
-    paths = {kernels._lib_path(n) for n in kernels.KERNEL_NAMES}
-    assert len(paths) == len(kernels.KERNEL_NAMES)
+    paths = {kernels._lib_path(src) for src in kernels.SOURCES}
+    assert len(paths) == len(kernels.SOURCES)
     assert all(p.parent == kernels.BUILD_DIR and p.suffix == ".so" for p in paths)
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+    assert {src for src, _, _ in kernels._ENTRY.values()} == set(kernels.SOURCES)
+    assert all((kernels.CSRC / f"{src}.cu").is_file() for src in kernels.SOURCES)
 
 
 @pytest.mark.cuda
@@ -141,3 +169,111 @@ def test_flash_refuses_bf16_cuda_inputs(cuda):
     with pytest.raises(ValueError, match="float32"):
         scaled_attention(q, q, q)
     assert kernels.launches["flash_attn"] == before
+
+
+def _qkv(gen, lq, lk, dh, b=2, h=8, dtype=torch.float32):
+    return [torch.randn(b, n, h, dh, device="cuda", generator=gen).to(dtype)
+            for n in (lq, lk, lk, lq)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,dh", [(512, 512, 96), (2048, 512, 64), (1024, 1024, 128),
+                                      (512, 1024, 256)])
+def test_flash_stats_kernel_matches_plain(cuda, lq, lk, dh):
+    """K3 with its row statistics: O (bit-equal to K3 without them) and the
+    log-sum-exp against the plain forward."""
+    q, k, v, _ = _qkv(cuda, lq, lk, dh)
+    before = dict(kernels.launches)
+    o, lse = flash._flash_kernel(q, k, v, stats=True)
+    o_eval = flash._flash_kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attn_stats"] == before["flash_attn_stats"] + 1
+    assert kernels.launches["flash_attn"] == before["flash_attn"] + 1
+    assert torch.equal(o, o_eval)
+    o_p, lse_p = flash.attention_fwd_plain(q, k, v)
+    torch.testing.assert_close(o, o_p, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 96, 128, 256])
+@pytest.mark.parametrize("length", [512, 2048])
+def test_flash_backward_kernels_match_plain(cuda, dh, length):
+    """K5 (dQ) and K4 (dK, dV) against the plain backward on the same
+    residuals, at atol 2e-4 and rtol 2e-4 (tests/test_flash_vjp.py's bound)."""
+    q, k, v, do = _qkv(cuda, length, length, dh)
+    o, lse = flash.attention_fwd_plain(q, k, v)
+    di = (o * do).sum(-1).transpose(1, 2).contiguous()
+    before = dict(kernels.launches)
+    dq, dk, dv = flash._bwd_kernels(q, k, v, lse, do, di)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 1
+    assert kernels.launches["flash_attn_bwd_dkv"] == before["flash_attn_bwd_dkv"] + 1
+    dk_p, dv_p = flash.attention_bwd_dkv_plain(q, k, v, lse, do, di)
+    dq_p = flash.attention_bwd_dq_plain(q, k, v, lse, do, di)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_training_attention_launches_k3_stats_k4_k5(cuda):
+    """scaled_attention with a gradient recorded goes through the flash
+    Function: K3 with statistics forward, K5 and K4 backward, and its
+    gradients agree with autograd through the naive math. Without a
+    gradient (evaluation) it launches K3 alone."""
+    q, k, v, do = _qkv(cuda, 2048, 512, 64)
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(kernels.launches)
+    out = scaled_attention(*ins)
+    got = torch.autograd.grad(out, ins, do)
+    torch.cuda.synchronize()
+    moved = {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES}
+    assert moved == {"nn_distance": 0, "fps": 0, "flash_attn": 0, "flash_attn_stats": 1,
+                     "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
+    ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(naive_attention(*ref_ins), ref_ins, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+    with torch.inference_mode():
+        scaled_attention(q, k, v)
+    assert kernels.launches["flash_attn"] == before["flash_attn"] + 1
+    assert kernels.launches["flash_attn_stats"] == before["flash_attn_stats"] + 1
+
+
+@pytest.mark.cuda
+def test_flash_function_refuses_bf16_and_device_mixes(cuda):
+    q, k, v, _ = _qkv(cuda, 512, 512, 64)
+    before = dict(kernels.launches)
+    bf = [x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v)]
+    with pytest.raises(ValueError, match="float32"):
+        flash.flash_attention_train(*bf)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention_train(q.requires_grad_(True), k.cpu(), v)
+    assert kernels.launches == before
+
+
+@pytest.mark.cuda
+def test_chamfer_and_nn_backward_with_k1_match_plain(cuda):
+    """The chamfer and one-way NN gradients (±2 g (p − q[argmin]) scattered
+    into both clouds) with K1 in the forward match those of the plain
+    forward: K1 picks the same argmins bit for bit, and only the order of
+    index_add_'s atomics differs (1e-6)."""
+    a = torch.rand(2, 2048, 3, device="cuda", generator=cuda) - 0.5
+    b = torch.rand(2, 512, 3, device="cuda", generator=cuda) - 0.5
+    w1 = torch.rand(2, 2048, device="cuda", generator=cuda)
+    w2 = torch.rand(2, 512, device="cuda", generator=cuda)
+
+    def grads():
+        x, y = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        d1, d2, _, _ = chamfer_distance(x, y)
+        loss = (d1 * w1).sum() + (d2 * w2).sum() + (nn_squared_distance(y, x) * w2).sum()
+        return torch.autograd.grad(loss, (x, y))
+
+    before = kernels.launches["nn_distance"]
+    got = grads()
+    torch.cuda.synchronize()
+    assert kernels.launches["nn_distance"] == before + 3
+    with kernels.reference_ops():
+        want = grads()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
