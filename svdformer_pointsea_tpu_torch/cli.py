@@ -1,0 +1,103 @@
+"""Command-line entry point of the PCN track (semantics of
+svdformer_pointsea_tpu/cli.py ``main_pcn``): training by default, evaluation
+of ``--weights`` with ``--test`` or ``--inference``.
+
+    python -m svdformer_pointsea_tpu_torch.cli pcn [--test|--inference] [--weights CKPT]
+        [--out DIR] [--epochs N] [--precision f32|bf16] [--progress]
+
+It runs on the CUDA card unless ``main_pcn`` is called with
+``device="cpu"``. The JAX package's ``--sp`` (> 1), ``--dp shard_map`` and
+``--complete`` are parsed and refused with the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import sys
+from pprint import pprint
+from typing import Optional, Sequence
+
+from svdformer_pointsea_tpu_torch.configs import Config, pcn_config
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="SVDFormer on PCN, PyTorch / CUDA port")
+    p.add_argument("--test", action="store_true", help="evaluate --weights on the test split")
+    p.add_argument("--inference", action="store_true", help="the same as --test")
+    p.add_argument("--weights", default=None, help="checkpoint to resume from or to evaluate")
+    p.add_argument("--out", default=None, help="output directory")
+    p.add_argument("--epochs", type=int, default=None, help="number of epochs")
+    p.add_argument("--precision", default=None, choices=["f32", "bf16"],
+                   help="f32 (default, reference-faithful) or bf16: bf16 image trunk and "
+                        "flash-attention kernels, f32 parameters and optimizer")
+    p.add_argument("--progress", action="store_true", help="live per-batch loss line")
+    # Flags of the JAX package that this port refuses (ROADMAP queue A).
+    p.add_argument("--sp", type=int, default=None, help="not ported: multi-GPU, item 15")
+    p.add_argument("--dp", default=None, choices=["gspmd", "shard_map"],
+                   help="not ported beyond one card: multi-GPU, item 15")
+    p.add_argument("--complete", default=None, metavar="PATH",
+                   help="not ported: standalone completion, item 13")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if args.sp is not None and args.sp > 1:
+        raise SystemExit(f"--sp {args.sp}: sequence parallelism is multi-GPU work, "
+                         "not ported yet (ROADMAP queue A item 15)")
+    if args.dp == "shard_map":
+        raise SystemExit("--dp shard_map: multi-GPU data parallelism is not ported yet "
+                         "(ROADMAP queue A item 15)")
+    if args.complete is not None:
+        raise SystemExit("--complete: standalone completion is not ported yet "
+                         "(ROADMAP queue A item 13)")
+
+
+def _apply_overrides(cfg: Config, args) -> Config:
+    train = {}
+    if args.epochs is not None:
+        train["n_epochs"] = args.epochs
+    if args.precision:
+        train["precision"] = args.precision
+    if args.progress:
+        train["progress"] = True
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train))
+    if args.weights:
+        cfg = cfg.replace(weights=args.weights)
+    if args.out:
+        cfg = cfg.replace(out_path=args.out)
+    return cfg
+
+
+def main_pcn(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
+    """Train, or with ``--test`` / ``--inference`` evaluate, SVDFormer on PCN.
+    Returns ``train_net``'s ``(state, best_metric)`` or ``test_net``'s mean CD."""
+    from svdformer_pointsea_tpu_torch.train import test_net, train_net
+
+    logging.basicConfig(format="[%(levelname)s] %(asctime)s %(message)s", level=logging.INFO)
+    args = _parser().parse_args(argv)
+    _refuse_unported(args)
+    cfg = _apply_overrides(pcn_config(), args)
+    print("Use config:")
+    pprint(cfg)
+    if not args.test and not args.inference:
+        return train_net(cfg, device=device)
+    if cfg.weights is None:
+        raise SystemExit("Please specify the path to a checkpoint (--weights)!")
+    return test_net(cfg, device=device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """``python -m svdformer_pointsea_tpu_torch.cli <track> [flags]``; the
+    port has the ``pcn`` track."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] != "pcn":
+        raise SystemExit("usage: python -m svdformer_pointsea_tpu_torch.cli pcn [flags]; the "
+                         "port has the PCN track only (ShapeNet-55, GeoSpecNet, PointSea and "
+                         "KITTI are ROADMAP queue A items 10-13)")
+    main_pcn(argv[1:])
+
+
+if __name__ == "__main__":
+    main()

@@ -18,6 +18,11 @@ from svdformer_pointsea_tpu_torch.nn.layers import (
     naive_attention,
     scaled_attention,
 )
+from svdformer_pointsea_tpu_torch.nn.precision import (
+    mixed_precision,
+    mixed_precision_enabled,
+    set_mixed_precision,
+)
 from svdformer_pointsea_tpu_torch.nn.resnet import BasicBlock, ImageTrunk
 from svdformer_pointsea_tpu_torch.nn.svdformer import SVDFormer, has_zero_gradient, init_parameters
 
@@ -39,6 +44,9 @@ __all__ = [
     "flash_attention",
     "naive_attention",
     "scaled_attention",
+    "mixed_precision",
+    "mixed_precision_enabled",
+    "set_mixed_precision",
     "BasicBlock",
     "ImageTrunk",
     "SVDFormer",

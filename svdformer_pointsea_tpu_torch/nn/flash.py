@@ -11,11 +11,18 @@ term ``di`` are (B, h, Lq) f32.
   the scaled logits: upstream's ``m`` + log ``l``) and saves q, k, v, o and
   lse; its backward launches K5 (dQ) and K4 (dK, dV).
 
+q, k and v are all f32 or all bf16. bf16 inputs (``--precision bf16``) take
+the bf16 instances of the kernels, on the tensor cores, which compute what
+the upstream Pallas kernels compute on bf16 inputs: f32 scores, softmax
+statistics and accumulation, with P rounded to bf16 before P·V, Pᵀ before
+dV, dS (after the scale) before dK and dQ, and O, dK, dV and dQ returned in
+bf16; ``lse`` and ``di`` stay f32.
+
 Each kernel has a plain PyTorch version beside it, written out from the same
 formulas (not autograd): :func:`naive_attention`, :func:`attention_fwd_plain`,
-:func:`attention_bwd_dkv_plain`, :func:`attention_bwd_dq_plain`. A CPU tensor
-takes them; a CUDA tensor launches the kernel or raises
-(``kernels.use_kernel``).
+:func:`attention_bwd_dkv_plain`, :func:`attention_bwd_dq_plain` and their
+``_bf16`` twins. A CPU tensor takes them; a CUDA tensor launches the kernel
+or raises (``kernels.use_kernel``).
 """
 
 from __future__ import annotations
@@ -69,9 +76,67 @@ def attention_bwd_dq_plain(q, k, v, lse, do, di):
     return torch.einsum("bhqk,bkhd->bqhd", ds, k) * (1.0 / math.sqrt(q.shape[-1]))
 
 
+_BF16 = torch.bfloat16
+FLASH_DTYPES = (torch.float32, _BF16)
+
+
+def attention_fwd_plain_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(o bf16, lse f32) from bf16 q, k, v: the plain version of the bf16 K3.
+    Scores, statistics and P·V in f32; P = exp(S − m) rounded to bf16 before
+    P·V and normalised after it, as the upstream kernel does within one key
+    block (the kernel rounds per 64-key tile against the running max)."""
+    s = _scores(q.float(), k.float())
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(_BF16).float(), v.float())
+    return (o / l.transpose(1, 2)[..., None]).to(_BF16), m[..., 0] + torch.log(l)
+
+
+def _dscores_bf16(q, k, v, lse, do, di):
+    """(P, dS) in f32 from bf16 operands; dS = (dP − di) ∘ P · scale, the
+    value the bf16 kernels round before dK and dQ."""
+    p = torch.exp(_scores(q.float(), k.float()) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, (dp - di[..., None]) * p * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def attention_bwd_dkv_plain_bf16(q, k, v, lse, do, di):
+    """(dk, dv) in bf16: the plain version of the bf16 K4 (Pᵀ and dSᵀ
+    rounded to bf16 before their products)."""
+    p, ds = _dscores_bf16(q, k, v, lse, do, di)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(_BF16).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(_BF16).float(), q.float())
+    return dk.to(_BF16), dv.to(_BF16)
+
+
+def attention_bwd_dq_plain_bf16(q, k, v, lse, do, di):
+    """dq in bf16: the plain version of the bf16 K5 (dS rounded to bf16)."""
+    _, ds = _dscores_bf16(q, k, v, lse, do, di)
+    return torch.einsum("bhqk,bkhd->bqhd", ds.to(_BF16).float(), k.float()).to(_BF16)
+
+
+def _plain_fwd(q, k, v):
+    return attention_fwd_plain_bf16(q, k, v) if q.dtype == _BF16 else attention_fwd_plain(q, k, v)
+
+
+def _plain_bwd(q, k, v, lse, do, di):
+    if q.dtype == _BF16:
+        dk, dv = attention_bwd_dkv_plain_bf16(q, k, v, lse, do, di)
+        return attention_bwd_dq_plain_bf16(q, k, v, lse, do, di), dk, dv
+    dk, dv = attention_bwd_dkv_plain(q, k, v, lse, do, di)
+    return attention_bwd_dq_plain(q, k, v, lse, do, di), dk, dv
+
+
+def _kernel_name(base: str, dtype: torch.dtype) -> str:
+    return base + "_bf16" if dtype == _BF16 else base
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
+    if q.dtype not in FLASH_DTYPES:
+        raise ValueError(f"{name}: expected torch.float32 or torch.bfloat16, got {q.dtype}")
     for t, arg in ((q, "q"), (k, "k"), (v, "v")):
-        kernels.check_cuda_input(t, f"{name} {arg}", torch.float32, 4, align=16)  # float4 loads
+        kernels.check_cuda_input(t, f"{name} {arg}", q.dtype, 4, align=16)  # 16-byte loads
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     if k.shape != (B, Lk, H, D) or v.shape != k.shape:
@@ -83,8 +148,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
 
 
 def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stats: bool = False):
-    """K3: o, or (o, lse) with ``stats``."""
-    name = "flash_attn_stats" if stats else "flash_attn"
+    """K3 (f32 or bf16, by q's dtype): o, or (o, lse) with ``stats``."""
+    name = _kernel_name("flash_attn_stats" if stats else "flash_attn", q.dtype)
     B, Lq, Lk, H, D = _check(q, k, v, name)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device) if stats else None
@@ -94,31 +159,37 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stats: bool
 
 
 def _bwd_kernels(q, k, v, lse, do, di):
-    """K5 then K4: (dq, dk, dv)."""
+    """K5 then K4 (f32 or bf16, by q's dtype): (dq, dk, dv)."""
     B, Lq, Lk, H, D = _check(q, k, v, "flash_attn_bwd")
-    for t, arg, shape in ((do, "do", q.shape), (lse, "lse", (B, H, Lq)), (di, "di", (B, H, Lq))):
-        kernels.check_cuda_input(t, f"flash_attn_bwd {arg}", torch.float32, len(shape), align=16)
+    for t, arg, shape, dtype in ((do, "do", q.shape, q.dtype), (lse, "lse", (B, H, Lq), torch.float32),
+                                 (di, "di", (B, H, Lq), torch.float32)):
+        kernels.check_cuda_input(t, f"flash_attn_bwd {arg}", dtype, len(shape), align=16)
         if t.shape != shape:
             raise ValueError(f"flash_attn_bwd {arg}: expected {tuple(shape)}, got {tuple(t.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = [t.data_ptr() for t in (q, k, v, lse, do, di)]
     scale = 1.0 / math.sqrt(D)
-    kernels.launch("flash_attn_bwd_dq", q.device, *ptrs, dq.data_ptr(), B, H, Lq, Lk, D, scale)
-    kernels.launch("flash_attn_bwd_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
+    kernels.launch(_kernel_name("flash_attn_bwd_dq", q.dtype), q.device, *ptrs, dq.data_ptr(),
                    B, H, Lq, Lk, D, scale)
+    kernels.launch(_kernel_name("flash_attn_bwd_dkv", q.dtype), q.device, *ptrs, dk.data_ptr(),
+                   dv.data_ptr(), B, H, Lq, Lk, D, scale)
     return dq, dk, dv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Attention over (B, L, h, dh), no gradient: K3 on CUDA, the naive math on CPU."""
+    """Attention over (B, L, h, dh), no gradient: K3 on CUDA, its plain
+    version on CPU (the naive math for f32)."""
     if kernels.use_kernel(q):
         return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous())
+    if q.dtype == _BF16:
+        return attention_fwd_plain_bf16(q, k, v)[0]
     return naive_attention(q, k, v)
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable attention: K3 with statistics forward, K5 + K4 backward
-    (the plain versions on CPU tensors)."""
+    (the plain versions on CPU tensors). bf16 q, k, v give a bf16 O and bf16
+    gradients; the cotangent arrives in O's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -126,7 +197,7 @@ class FlashAttention(torch.autograd.Function):
         if kernels.use_kernel(q):
             o, lse = _flash_kernel(q, k, v, stats=True)
         else:
-            o, lse = attention_fwd_plain(q, k, v)
+            o, lse = _plain_fwd(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -134,12 +205,11 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        # di = rowsum(o ∘ do), as flash_vjp.py computes it outside the kernels.
-        di = (o * do).sum(-1).transpose(1, 2).contiguous()
+        # di = rowsum(o ∘ do) in f32, as flash_vjp.py computes it outside the kernels.
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         if kernels.use_kernel(q):
             return _bwd_kernels(q, k, v, lse, do, di)
-        dk, dv = attention_bwd_dkv_plain(q, k, v, lse, do, di)
-        return attention_bwd_dq_plain(q, k, v, lse, do, di), dk, dv
+        return _plain_bwd(q, k, v, lse, do, di)
 
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ weighted batch moments in train mode (rows weighted by :func:`bn_row_weights`).
 Attention goes through :func:`scaled_attention`, which sends CUDA inputs with
 at least 512 query tokens, both lengths multiples of 512 and a head dim of
 64, 96, 128 or 256 to the flash kernels (``nn/flash.py``), as the JAX package
-sends them to its Pallas flash kernels, and everything else to the naive math.
+sends them to its Pallas flash kernels, and everything else to the naive math
+(in bf16 mode with bf16 q, k and v, ``nn/precision.py``).
 """
 
 from __future__ import annotations
@@ -23,13 +24,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from svdformer_pointsea_tpu_torch import kernels
 from svdformer_pointsea_tpu_torch.nn.flash import (
     FLASH_HEAD_DIMS,
     flash_attention,
     flash_attention_train,
     naive_attention,
 )
+from svdformer_pointsea_tpu_torch.nn.precision import mixed_precision_enabled
 from svdformer_pointsea_tpu_torch.ops import group_local, sample_and_group_all, sample_and_group_knn
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
@@ -64,7 +65,10 @@ class BatchNorm(nn.Module):
     s1 = Σw·x, s2 = Σw·x²; mean = s1 / s0 and the biased "fast" variance
     s2 / s0 - mean². The output is x * mul + (bias - mean * mul), mul =
     rsqrt(var + eps) * weight, and the running statistics move as
-    ra <- 0.9 ra + 0.1 batch, with the biased variance.
+    ra <- 0.9 ra + 0.1 batch, with the biased variance. A bf16 input (the
+    image trunk in bf16 mode) takes its batch moments in f32 from the upcast
+    input and gets x * bf16(mul) + bf16(shift) in bf16, shift = bias - mean *
+    mul, as the JAX package's BatchNorm with ``dtype=bf16``.
     """
 
     def __init__(self, num_features: int, dim: int = -1, eps: float = BN_EPS):
@@ -95,16 +99,21 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1] * x.dim()
         shape[self.dim] = -1
-        if not self.training:
-            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        mean, var = self._batch_moments(x)
-        with torch.no_grad():
-            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
-            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
+        if self.training:
+            mean, var = self._batch_moments(x.float())
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        shift = self.bias - mean * mul
-        return x * mul.view(shape) + shift.view(shape)
+        if x.dtype == torch.bfloat16:  # the image trunk in bf16 mode: a bf16 affine
+            bf = torch.bfloat16
+            return x * mul.to(bf).view(shape) + (self.bias - mean * mul).to(bf).view(shape)
+        if not self.training:
+            return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return x * mul.view(shape) + (self.bias - mean * mul).view(shape)
 
 
 class MLPConv(nn.Module):
@@ -155,10 +164,18 @@ _FLASH_MIN_Q = 512
 _FLASH_BLOCK = 512
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """The flash path's device rule: a CUDA tensor (the JAX package's is the
+    TPU backend). On the CPU, attention is the naive math, as off the TPU."""
+    return t.device.type == "cuda"
+
+
 def _flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
-    # A shape rule only, as in the JAX package: an eligible CUDA input that
-    # is not f32 reaches the kernel wrapper, which raises.
-    if not kernels.use_kernel(q):
+    # The device and the JAX package's shape rule, no dtype clause: an
+    # eligible CUDA input of another dtype reaches the kernel wrapper, which
+    # raises. reference_ops() is decided inside the flash functions, which
+    # then run their plain versions of the same function.
+    if not _on_card(q):
         return False
     qn, kn, dh = q.shape[1], k.shape[1], q.shape[-1]
     return (qn >= _FLASH_MIN_Q and qn % _FLASH_BLOCK == 0 and kn % _FLASH_BLOCK == 0
@@ -168,12 +185,17 @@ def _flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
 def scaled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q kᵀ / sqrt(dh)) v over (B, L, h, dh) tensors. Eligible shapes
     take K3 alone when no gradient is recorded, and K3 with its statistics
-    plus K4 / K5 in the backward when one is; the rest the naive math."""
+    plus K4 / K5 in the backward when one is; the rest the naive math. In
+    bf16 mode an eligible site casts q, k, v to bf16 and the output back, so
+    autograd carries a bf16 cotangent into the backward kernels."""
     if not _flash_eligible(q, k):
         return naive_attention(q, k, v)
+    dtype = q.dtype
+    if mixed_precision_enabled():
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return flash_attention_train(q, k, v)
-    return flash_attention(q, k, v)
+        return flash_attention_train(q, k, v).to(dtype)
+    return flash_attention(q, k, v).to(dtype)
 
 
 class MultiheadAttention(nn.Module):

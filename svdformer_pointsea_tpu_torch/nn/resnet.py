@@ -6,6 +6,12 @@ stride-1 3x3 stem (1 -> feat_size) + BN + ReLU, ResNet layers (2, 2, 2, 2) at
 widths feat_size x (1, 2, 4, 8) with stride 1 then 2, 2, 2, and a global
 average pool. Parameter names follow the JAX tree (``stem_conv``,
 ``layer2.block0.down_conv`` ...).
+
+Under ``nn.precision.set_mixed_precision(True)`` the trunk runs in bf16 as
+the JAX package's does (its ``_trunk_dtype``): the input is cast to bf16,
+every convolution runs on the bf16 activations with its weight cast to
+bf16, every BatchNorm applies a bf16 affine (``nn/layers.py::BatchNorm``),
+and the final mean pools in f32. Parameters stay f32.
 """
 
 from __future__ import annotations
@@ -17,10 +23,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from svdformer_pointsea_tpu_torch.nn.layers import BatchNorm
+from svdformer_pointsea_tpu_torch.nn.precision import mixed_precision_enabled
 
 
-def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in its input's dtype: a bf16 input convolves with the
+    weight cast to bf16 and gives a bf16 output."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+
+
+def _conv3x3(cin: int, cout: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
 
 
 class BasicBlock(nn.Module):
@@ -33,7 +48,7 @@ class BasicBlock(nn.Module):
         self.conv2 = _conv3x3(planes, planes)
         self.bn2 = BatchNorm(planes, dim=1)
         if downsample:
-            self.down_conv = nn.Conv2d(in_planes, planes, 1, stride=stride, bias=False)
+            self.down_conv = Conv2d(in_planes, planes, 1, stride=stride, bias=False)
             self.down_bn = BatchNorm(planes, dim=1)
         else:
             self.down_conv = None
@@ -68,6 +83,8 @@ class ImageTrunk(nn.Module):
         self.layer4 = _Layer(fs * 4, fs * 8, layers[3], 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if mixed_precision_enabled():
+            x = x.to(torch.bfloat16)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return x.mean(dim=(2, 3))
+        return x.float().mean(dim=(2, 3))

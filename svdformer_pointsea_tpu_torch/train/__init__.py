@@ -1,6 +1,18 @@
-"""Evaluation, the train step, model construction and weight conversion."""
+"""Evaluation, the train step, the PCN orchestration, checkpoints and weight conversion."""
 
-from svdformer_pointsea_tpu_torch.train.loop import build_model, init_state, make_lr_fn
+from svdformer_pointsea_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from svdformer_pointsea_tpu_torch.train.loop import (
+    build_model,
+    init_state,
+    load_weights_into_state,
+    make_lr_fn,
+    test_net,
+    train_net,
+)
 from svdformer_pointsea_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
@@ -9,11 +21,17 @@ from svdformer_pointsea_tpu_torch.train.state import (
 )
 
 __all__ = [
+    "CheckpointManager",
     "TrainState",
     "build_model",
     "init_state",
+    "load_weights_into_state",
     "make_lr_fn",
     "make_optimizer",
     "make_train_step",
     "reference_lr_schedule",
+    "restore_checkpoint",
+    "save_checkpoint",
+    "test_net",
+    "train_net",
 ]

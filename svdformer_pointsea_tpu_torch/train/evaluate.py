@@ -45,12 +45,14 @@ def make_pcn_eval_fn(model: torch.nn.Module, render: PCViews):
     return eval_fn
 
 
-def eval_pcn(cfg, model: torch.nn.Module, loader) -> float:
+def eval_pcn(cfg, model: torch.nn.Module, loader, logger=None, epoch: int = 0) -> float:
     """Per-taxonomy CD-L1×10³ / DCD / F1 over ``loader``, on the model's device.
 
     ``loader`` yields batches with ``data["partial_cloud"]`` (B, N, 3),
     ``data["gtcloud"]`` (B, M, 3), ``taxonomy_ids`` and ``valid`` (rows past
-    ``valid`` are padding and are not counted). Returns the mean CD.
+    ``valid`` are padding and are not counted). With a ``logger`` the means
+    go to it as ``Test/cd``, ``Test/dcd``, ``Test/f1`` at step ``epoch``.
+    Returns the mean CD.
     """
     device = next(model.parameters()).device
     eval_fn = make_pcn_eval_fn(model, make_renderer(cfg))
@@ -67,6 +69,9 @@ def eval_pcn(cfg, model: torch.nn.Module, loader) -> float:
             test_metrics.update(vals)
 
     _print_category_table(category_metrics, test_metrics)
+    if logger is not None:
+        for i, name in enumerate(METRIC_NAMES):
+            logger.add_scalar(f"Test/{name}", test_metrics.avg(i), epoch)
     return test_metrics.avg(0)
 
 

@@ -1,34 +1,53 @@
-"""Model and train-state construction for the PCN track (semantics of
-svdformer_pointsea_tpu/train/loop.py ``build_model`` / ``init_state``).
+"""PCN orchestration: model and train-state construction, ``train_net`` and
+``test_net`` (semantics of svdformer_pointsea_tpu/train/loop.py, PCN track).
 
 The model is built on the CUDA card unless the caller names another device;
-without a card and without ``device``, :func:`build_model` raises rather than
-falling back to the CPU.
+without a card and without ``device``, :func:`build_model` (and so
+``train_net`` / ``test_net``) raises rather than falling back to the CPU.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import random
+import sys
+import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from svdformer_pointsea_tpu_torch.data import Loader, make_dataset
 from svdformer_pointsea_tpu_torch.nn import SVDFormer, init_parameters
+from svdformer_pointsea_tpu_torch.nn.precision import mixed_precision
+from svdformer_pointsea_tpu_torch.render import make_renderer
+from svdformer_pointsea_tpu_torch.train.checkpoint import CheckpointManager, restore_checkpoint
+from svdformer_pointsea_tpu_torch.train.evaluate import eval_pcn
 from svdformer_pointsea_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
+    make_train_step,
     reference_lr_schedule,
 )
+from svdformer_pointsea_tpu_torch.utils import AverageMeter, StepTimer, SummaryLogger
+
+
+def resolve_device(device: Optional[str] = None) -> str:
+    """``device``, or the CUDA card when none is named; raises when no card
+    is visible and no device is named."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to run on the CPU")
+    return "cuda"
 
 
 def build_model(cfg, device: Optional[str] = None, seed: int = 0) -> SVDFormer:
     """SVDFormer from ``cfg.network`` with weights drawn by ``init_parameters``
     from a ``torch.Generator`` seeded with ``seed``, on ``device`` (default:
     the CUDA card; pass ``device="cpu"`` to build on the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("build_model: no CUDA device is visible; pass device='cpu' "
-                               "to build on the CPU")
-        device = "cuda"
+    device = resolve_device(device)
     model = SVDFormer.from_config(cfg.network)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device)
@@ -47,3 +66,160 @@ def make_lr_fn(cfg) -> Callable[[int, int], float]:
     ``lr_fn(global_step + 1, epoch - 1)``."""
     t = cfg.train
     return reference_lr_schedule(t.learning_rate, t.warmup_steps, t.lr_decay_step, t.gamma)
+
+
+def set_seed(seed: int) -> None:
+    """Seed the host generators (the reference's main_pcn.py)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def check_supported(cfg) -> None:
+    """Refuse, with the ROADMAP item that ports it, a configuration this
+    port does not run: nothing is ignored silently."""
+    t = cfg.train
+    if cfg.data.name != "ShapeNet":
+        raise NotImplementedError(f"the {cfg.data.name} track is not ported (ROADMAP queue A "
+                                  "item 10 for ShapeNet-55, item 13 for KITTI)")
+    if t.adv_enabled:
+        raise NotImplementedError("the adversarial branch is not ported (ROADMAP queue A item 10)")
+    if t.sp != 1:
+        raise NotImplementedError(f"sp={t.sp}: sequence parallelism is multi-GPU work "
+                                  "(ROADMAP queue A item 15)")
+    if t.dp != "gspmd":
+        raise NotImplementedError(f"dp={t.dp}: shard_map data parallelism is multi-GPU work "
+                                  "(ROADMAP queue A item 15)")
+    if t.precision not in ("f32", "bf16"):
+        raise ValueError(f"precision must be f32 or bf16, got {t.precision!r}")
+
+
+def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = None,
+              device: Optional[str] = None):
+    """A full PCN training run: per epoch, the train loader's batches through
+    the train step at the reference LR schedule, validation through
+    ``eval_pcn`` with the val loader keyed by the same epoch, and the best /
+    periodic checkpoints; resumes from ``cfg.weights`` (a checkpoint of this
+    port) at the epoch after the saved one. ``cfg.train.precision`` "bf16"
+    runs the whole run, validation included, in bf16 mode.
+
+    ``max_epochs`` / ``max_steps`` bound the run for smoke tests. Returns
+    ``(state, best_metric)``.
+    """
+    check_supported(cfg)
+    device = resolve_device(device)
+    set_seed(cfg.seed)
+    tcfg = cfg.train
+    with mixed_precision(tcfg.precision == "bf16"):
+        train_loader = Loader(make_dataset(cfg, "train", seed=cfg.seed), tcfg.batch_size,
+                              shuffle=True, seed=cfg.seed, num_workers=cfg.data.num_workers)
+        val_loader = Loader(make_dataset(cfg, "val", seed=cfg.seed), tcfg.batch_size,
+                            shuffle=False, num_workers=cfg.data.num_workers)
+        model = build_model(cfg, device=device, seed=cfg.seed)
+        state = init_state(cfg, model)
+        logging.info("Parameters: %d", sum(p.numel() for p in model.parameters()))
+        step = make_train_step(model, state.optimizer, tcfg.sqrt_loss, make_renderer(cfg).get_img)
+        lr_fn = make_lr_fn(cfg)
+        dev = next(model.parameters()).device
+
+        ckpts = CheckpointManager(cfg.out_path, tcfg.save_freq)
+        start_epoch = 1
+        if cfg.weights:
+            state, saved_epoch, ckpts.best_metric = restore_checkpoint(cfg.weights, state)
+            start_epoch = saved_epoch + 1
+            logging.info("Resumed from %s at epoch %d", cfg.weights, saved_epoch)
+        n_epochs = min(tcfg.n_epochs, max_epochs or tcfg.n_epochs)
+        global_step = state.step
+        logger = SummaryLogger(os.path.join(cfg.out_path, "logs"))
+        timer = StepTimer()
+
+        for epoch in range(start_epoch, n_epochs + 1):
+            # Data randomness derives from (seed, epoch): a resumed run
+            # replays the straight run's batches exactly.
+            train_loader.set_epoch(epoch)
+            epoch_t0 = time.time()
+            timer.reset()
+            losses = AverageMeter(["cdc", "cd1", "cd2"])
+            data_time, batch_time = AverageMeter(), AverageMeter()
+            pending = []  # (step, lr, metrics on the device), read after the epoch
+
+            def consume(entries):
+                vals = None
+                for step_i, lr_i, metrics in entries:
+                    vals = [float(metrics[k]) * 1e3 for k in ("cdc", "cd1", "cd2")]
+                    losses.update(vals)
+                    logger.add_scalar("Train/loss", float(metrics["loss"]), step_i)
+                    logger.add_scalar("Train/lr", lr_i, step_i)
+                return vals
+
+            n_batches = 0
+            for batch in train_loader:
+                timer.mark_data()
+                lr = lr_fn(global_step + 1, epoch - 1)
+                partial = torch.as_tensor(batch.data["partial_cloud"], device=dev)
+                gt = torch.as_tensor(batch.data["gtcloud"], device=dev)
+                # One device: every row, the loader's repeated pad rows too,
+                # has weight 1, as the JAX package's pad_batch gives them.
+                weights = torch.ones(partial.shape[0], device=dev)
+                state, metrics = step(state, partial, gt, weights, lr)
+                global_step += 1
+                # Reading the metrics now would wait for the step; they are
+                # read one step late (--progress) or after the epoch.
+                pending.append((global_step, lr, metrics))
+                if tcfg.progress and len(pending) > 1:
+                    step_i, lr_i, _ = pending[0]
+                    vals = consume([pending.pop(0)])
+                    sys.stderr.write(f"\repoch {epoch} step {step_i} losses(x1e3) "
+                                     f"cdc={vals[0]:.3f} cd1={vals[1]:.3f} cd2={vals[2]:.3f} "
+                                     f"lr={lr_i:.2e}  ")
+                    sys.stderr.flush()
+                n_batches += 1
+                timer.mark_batch()
+                data_time.update(timer.data_time)
+                batch_time.update(timer.batch_time)
+                if max_steps is not None and global_step >= max_steps:
+                    break
+            consume(pending)
+            if tcfg.progress and n_batches:
+                sys.stderr.write("\n")
+            wall = time.time() - epoch_t0
+            logging.info("Epoch %d/%d t=%.1fs data=%.3fs/it host=%.3fs/it step=%.3fs/it "
+                         "losses(x1e3)=%s", epoch, n_epochs, wall, data_time.avg(),
+                         batch_time.avg(), wall / max(n_batches, 1),
+                         [f"{v:.3f}" for v in losses.avg()])
+
+            # The val loader is keyed by the true epoch too, so validation (and
+            # with it the best checkpoint) is the same in a resumed run.
+            val_loader.set_epoch(epoch)
+            val_cd = eval_pcn(cfg, model, val_loader, logger, epoch)
+            improved = ckpts.maybe_save(state, epoch, val_cd)
+            logging.info("Epoch %d val CD=%.4f best=%.4f%s", epoch, val_cd, ckpts.best_metric,
+                         " *" if improved else "")
+            if max_steps is not None and global_step >= max_steps:
+                break
+        logger.close()
+    return state, ckpts.best_metric
+
+
+def load_weights_into_state(state: TrainState, cfg) -> TrainState:
+    """``cfg.weights`` (a checkpoint of this port) loaded into ``state``; no-op
+    without weights."""
+    if cfg.weights:
+        state, _, _ = restore_checkpoint(cfg.weights, state)
+    return state
+
+
+def test_net(cfg, device: Optional[str] = None) -> float:
+    """Evaluation of ``cfg.weights`` on the test split: the per-category
+    CD-L1×10³ / DCD / F1 table; returns the mean CD. ``cfg.train.precision``
+    "bf16" evaluates in bf16 mode."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    set_seed(cfg.seed)
+    with mixed_precision(cfg.train.precision == "bf16"):
+        model = build_model(cfg, device=device, seed=cfg.seed)
+        state = load_weights_into_state(init_state(cfg, model), cfg)
+        loader = Loader(make_dataset(cfg, "test", seed=cfg.seed), cfg.train.batch_size,
+                        shuffle=False, num_workers=cfg.data.num_workers)
+        return eval_pcn(cfg, state.model, loader)
+

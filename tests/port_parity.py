@@ -7,6 +7,8 @@ arrays. A test module that imports :func:`jax_reference_modes` and lists it in
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 from svdformer_pointsea_tpu import nn as jnn
 from svdformer_pointsea_tpu import ops as jops
 from svdformer_pointsea_tpu.nn import layers as jax_layers
+from svdformer_pointsea_tpu.nn import precision as jax_precision
 from svdformer_pointsea_tpu.ops import distances as jax_distances
 from svdformer_pointsea_tpu_torch.train.convert import params_from_jax
 
@@ -51,6 +54,18 @@ def jax_difference_form_nn(monkeypatch):
         return jnp.min(d, axis=-1), jnp.argmin(d, axis=-1).astype(jnp.int32)
 
     monkeypatch.setattr(jax_distances, "_nn_one_way", nn_one_way)
+
+
+@contextlib.contextmanager
+def jax_mixed_precision(enabled: bool = True):
+    """The JAX package's mixed-precision switch set to ``enabled`` for the
+    block (trace inside it: the switch is read at trace time), restored after."""
+    prev = jax_precision.mixed_precision_enabled()
+    jax_precision.set_mixed_precision(enabled)
+    try:
+        yield
+    finally:
+        jax_precision.set_mixed_precision(prev)
 
 
 def jax_variables(module, *args, seed: int = 0, **kwargs):

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from svdformer_pointsea_tpu_torch import kernels
-from svdformer_pointsea_tpu_torch.nn import flash
+from svdformer_pointsea_tpu_torch.nn import flash, layers, mixed_precision
 from svdformer_pointsea_tpu_torch.nn.layers import (
     _flash_eligible,
     flash_attention,
@@ -70,14 +70,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         _fps_kernel(x, 4)
     with pytest.raises(ValueError, match="CUDA"):
         _nn_one_way_kernel(x, x)
-    q = torch.rand(1, 64, 1, 64)
-    with pytest.raises(ValueError, match="CUDA"):
-        _flash_kernel(q, q, q)
-    with pytest.raises(ValueError, match="CUDA"):
-        _flash_kernel(q, q, q, stats=True)
     lse = torch.zeros(1, 1, 64)
-    with pytest.raises(ValueError, match="CUDA"):
-        _bwd_kernels(q, q, q, lse, q, lse)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.rand(1, 64, 1, 64).to(dtype)
+        with pytest.raises(ValueError, match="CUDA"):
+            _flash_kernel(q, q, q)
+        with pytest.raises(ValueError, match="CUDA"):
+            _flash_kernel(q, q, q, stats=True)
+        with pytest.raises(ValueError, match="CUDA"):
+            _bwd_kernels(q, q, q, lse, q, lse)
 
 
 def test_cpu_training_attention_takes_the_plain_versions():
@@ -103,13 +104,18 @@ def test_cpu_training_attention_takes_the_plain_versions():
     (256, 512, 64, False), (768, 512, 64, False), (512, 640, 128, False), (512, 512, 80, False),
 ])
 def test_flash_eligibility_is_a_shape_rule(monkeypatch, lq, lk, dh, eligible):
-    """The JAX package's rule (>= 512 query tokens, both lengths multiples of
-    512, dh in {64, 96, 128, 256}) with no dtype clause: a non-f32 input of
-    eligible shape goes to the kernel wrapper, which raises on the card."""
-    monkeypatch.setattr(kernels, "use_kernel", lambda t: True)
-    for dtype in (torch.float32, torch.bfloat16):
+    """On the card (the device predicate), the JAX package's rule (>= 512
+    query tokens, both lengths multiples of 512, dh in {64, 96, 128, 256})
+    with no dtype clause: an input of another dtype and eligible shape goes
+    to the kernel wrapper, which raises on the card. Off the card nothing is
+    eligible."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q = torch.zeros(1, lq, 1, dh, dtype=dtype)
-        assert _flash_eligible(q, torch.zeros(1, lk, 1, dh, dtype=dtype)) is eligible
+        k = torch.zeros(1, lk, 1, dh, dtype=dtype)
+        assert _flash_eligible(q, k) is False
+        monkeypatch.setattr(layers, "_on_card", lambda t: True)
+        assert _flash_eligible(q, k) is eligible
+        monkeypatch.undo()
 
 
 def test_library_name_tracks_source_and_flags():
@@ -161,14 +167,21 @@ def test_flash_kernel_matches_naive(cuda, lq, lk, dh):
 
 
 @pytest.mark.cuda
-def test_flash_refuses_bf16_cuda_inputs(cuda):
-    """A bf16 CUDA input of eligible shape raises; it does not fall back to
-    the naive math (K3 is f32 only)."""
+def test_flash_takes_bf16_and_refuses_f16_cuda_inputs(cuda):
+    """A bf16 CUDA input of eligible shape launches the bf16 K3 and gives a
+    bf16 O; an f16 one raises: neither falls back to the naive math."""
     q = torch.randn(1, 512, 8, 64, device="cuda", generator=cuda).to(torch.bfloat16)
-    before = kernels.launches["flash_attn"]
-    with pytest.raises(ValueError, match="float32"):
-        scaled_attention(q, q, q)
-    assert kernels.launches["flash_attn"] == before
+    before = dict(kernels.launches)
+    out = scaled_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert kernels.launches["flash_attn_bf16"] == before["flash_attn_bf16"] + 1
+    assert kernels.launches["flash_attn"] == before["flash_attn"]
+    want = flash.attention_fwd_plain_bf16(q, q, q)[0].float()
+    assert ((out.float() - want).abs().max() / want.abs().max()).item() <= BF16_REL
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        scaled_attention(q.half(), q.half(), q.half())
+    assert kernels.launches["flash_attn_bf16"] == before["flash_attn_bf16"] + 1
 
 
 def _qkv(gen, lq, lk, dh, b=2, h=8, dtype=torch.float32):
@@ -228,8 +241,8 @@ def test_training_attention_launches_k3_stats_k4_k5(cuda):
     got = torch.autograd.grad(out, ins, do)
     torch.cuda.synchronize()
     moved = {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES}
-    assert moved == {"nn_distance": 0, "fps": 0, "flash_attn": 0, "flash_attn_stats": 1,
-                     "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
+    assert {n: c for n, c in moved.items() if c} == {
+        "flash_attn_stats": 1, "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
     ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad(naive_attention(*ref_ins), ref_ins, do)
     for a, b in zip(got, want):
@@ -241,15 +254,100 @@ def test_training_attention_launches_k3_stats_k4_k5(cuda):
 
 
 @pytest.mark.cuda
-def test_flash_function_refuses_bf16_and_device_mixes(cuda):
-    q, k, v, _ = _qkv(cuda, 512, 512, 64)
+def test_flash_function_takes_bf16_and_refuses_f16_and_device_mixes(cuda):
+    """bf16 into the flash Function launches the bf16 K3 with statistics,
+    K5 and K4 once each and gives a bf16 O and bf16 gradients; f16 and a mix
+    of devices raise before any launch."""
+    q, k, v, do = _qkv(cuda, 512, 512, 64, dtype=torch.bfloat16)
     before = dict(kernels.launches)
-    bf = [x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v)]
-    with pytest.raises(ValueError, match="float32"):
-        flash.flash_attention_train(*bf)
+    bf = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash.flash_attention_train(*bf)
+    grads = torch.autograd.grad(out, bf, do)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in grads)
+    moved = {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES}
+    assert {n: c for n, c in moved.items() if c} == {
+        "flash_attn_stats_bf16": 1, "flash_attn_bwd_dkv_bf16": 1, "flash_attn_bwd_dq_bf16": 1}
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        flash.flash_attention_train(*(x.half().requires_grad_(True) for x in (q, k, v)))
+    q32, k32, v32 = (x.float() for x in (q, k, v))
     with pytest.raises(ValueError, match="CUDA"):
-        flash.flash_attention_train(q.requires_grad_(True), k.cpu(), v)
+        flash.flash_attention_train(q32.requires_grad_(True), k32.cpu(), v32)
+    with pytest.raises(ValueError, match="torch.bfloat16"):
+        flash.flash_attention_train(q.requires_grad_(True), k32, v32)  # dtype mix
     assert kernels.launches == before
+
+
+BF16_REL = 1e-2  # |Δ| ≤ 1e-2 · max|ref| for a bf16 output (tests/test_torch_bf16.py)
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,dh", [(512, 512, 96), (512, 512, 64), (2048, 2048, 64),
+                                      (2048, 2048, 128), (2048, 512, 64), (512, 1024, 256),
+                                      (1024, 512, 256)])
+def test_bf16_flash_kernels_match_plain(cuda, lq, lk, dh):
+    """The bf16 K3 (O bit-equal with and without statistics), K5 and K4
+    against their bf16 plain versions on the same inputs and residuals: O,
+    dq, dk, dv within 1e-2 · max|ref|, LSE within 1e-5 relative; a second
+    backward gives the same bits (no atomics)."""
+    q, k, v, do = _qkv(cuda, lq, lk, dh, dtype=torch.bfloat16)
+    before = dict(kernels.launches)
+    o, lse = flash._flash_kernel(q, k, v, stats=True)
+    o_eval = flash._flash_kernel(q, k, v)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    got = flash._bwd_kernels(q, k, v, lse, do, di)
+    again = flash._bwd_kernels(q, k, v, lse, do, di)
+    torch.cuda.synchronize()
+    moved = {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES}
+    assert {n: c for n, c in moved.items() if c} == {
+        "flash_attn_bf16": 1, "flash_attn_stats_bf16": 1, "flash_attn_bwd_dq_bf16": 2,
+        "flash_attn_bwd_dkv_bf16": 2}
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32 and torch.equal(o, o_eval)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    o_p, lse_p = flash.attention_fwd_plain_bf16(q, k, v)
+    assert _rel(o, o_p) <= BF16_REL
+    torch.testing.assert_close(lse, lse_p, atol=0, rtol=1e-5)
+    dk_p, dv_p = flash.attention_bwd_dkv_plain_bf16(q, k, v, lse, do, di)
+    dq_p = flash.attention_bwd_dq_plain_bf16(q, k, v, lse, do, di)
+    for a, b in zip(got, (dq_p, dk_p, dv_p)):
+        assert a.dtype == torch.bfloat16 and _rel(a, b) <= BF16_REL
+
+
+@pytest.mark.cuda
+def test_bf16_mode_attention_launches_the_bf16_kernels(cuda):
+    """In bf16 mode an eligible f32 site casts q, k, v to bf16: training
+    launches the bf16 K3 with statistics, K5 and K4 and no f32 flash kernel,
+    evaluation the bf16 K3; output and gradients come back f32 and agree
+    with the same site under reference_ops() (the bf16 plain versions)."""
+    q, k, v, do = _qkv(cuda, 2048, 512, 64)
+    before = dict(kernels.launches)
+    with mixed_precision(True):
+        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = scaled_attention(*ins)
+        got = torch.autograd.grad(out, ins, do)
+        with torch.inference_mode():
+            out_eval = scaled_attention(q, k, v)
+        torch.cuda.synchronize()
+        moved = {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES}
+        assert {n: c for n, c in moved.items() if c} == {
+            "flash_attn_stats_bf16": 1, "flash_attn_bwd_dkv_bf16": 1, "flash_attn_bwd_dq_bf16": 1,
+            "flash_attn_bf16": 1}
+        assert out.dtype == out_eval.dtype == torch.float32
+        assert all(g.dtype == torch.float32 for g in got)
+        with kernels.reference_ops():
+            ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out_r = scaled_attention(*ref_ins)
+            want = torch.autograd.grad(out_r, ref_ins, do)
+        assert {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES} == moved
+    assert torch.equal(out, out_eval)
+    assert _rel(out, out_r) <= BF16_REL
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= BF16_REL
 
 
 @pytest.mark.cuda

@@ -227,7 +227,10 @@ def test_port_imports_without_jax():
         "svdformer_pointsea_tpu_torch.nn, svdformer_pointsea_tpu_torch.render, "
         "svdformer_pointsea_tpu_torch.losses, svdformer_pointsea_tpu_torch.configs, "
         "svdformer_pointsea_tpu_torch.utils, svdformer_pointsea_tpu_torch.train.evaluate, "
-        "svdformer_pointsea_tpu_torch.train.convert\n"
+        "svdformer_pointsea_tpu_torch.train.convert, svdformer_pointsea_tpu_torch.cli, "
+        "svdformer_pointsea_tpu_torch.data, svdformer_pointsea_tpu_torch.data.synthetic, "
+        "svdformer_pointsea_tpu_torch.nn.precision, svdformer_pointsea_tpu_torch.train.loop, "
+        "svdformer_pointsea_tpu_torch.train.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'svdformer_pointsea_tpu')]\n"
         "assert not bad, bad\n"
