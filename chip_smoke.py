@@ -14,9 +14,14 @@ Phases (any failure exits non-zero):
    autograd through the naive math and against their own second run (bit
    for bit: no atomics);
 3. the same for the bf16 kernels at every attention site and at dh 256: bf16
-   K3 without and with statistics, K5 and K4 against their bf16 plain
-   versions (|Δ| ≤ 1e-2 · max|ref|, LSE 1e-5 relative), a second bf16
-   backward bit-equal, and an f16 input refused;
+   K3 without and with statistics (the TMA / wgmma kernel of
+   ``flash_attn_bf16_fwd.cu``), K5 and K4 against their bf16 plain versions
+   (|Δ| ≤ 1e-2 · max|ref|, LSE 1e-5 relative), O bit-equal with and without
+   statistics and on a repeat, a second bf16 backward bit-equal, and an f16
+   input refused; the bf16 K3 also on a large-spread case (q × 8: the
+   running max moves between key tiles); ``-Xptxas -v`` of the bf16 sources
+   (no spills in the K3 at dh 64, 96, 128) and the K3's SASS (``HGMMA``,
+   ``UTMALDG``);
 4. evaluation main path: ``eval_pcn`` on a full-width PCN SVDFormer (random
    weights from a seeded generator) over 3 synthetic batches of 8, with the
    launch counters zeroed just before and read just after; every kernel of
@@ -52,7 +57,9 @@ Phases (any failure exits non-zero):
    batch of 12, and K3 per evaluation batch of 8; the attention kernels
    beside ``scaled_dot_product_attention`` forward / backward as a
    yardstick: f32 on its memory-efficient backend, bf16 on its flash
-   backend); a profiler breakdown of both train steps by kernel family.
+   backend; the bf16 K3 with its TFLOP/s, its ratio to SDPA, the floor its
+   exponentials set, its device time from a CUDA graph beside SDPA's); a
+   profiler breakdown of both train steps by kernel family.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -100,6 +107,12 @@ BF16_LOSS_RTOL = 1e-4
 BF16_MU_RTOL = 5e-2
 BF16_TRUNK = "encoder.img_trunk."
 BF16_TRUNK_MU_RTOL = 0.5
+# The bf16 K3 on a large spread: q scaled by 8, so that the running max moves
+# between key tiles and the accumulator's rescale is exercised.
+SPREAD = 8.0
+SPREAD_SITES = [(512, 512, 96), (2048, 2048, 64), (2048, 2048, 128), (2048, 2048, 256)]
+# MUFU: 16 exponentials a clock per SM, 132 SMs (H100 SXM).
+EXP_PER_CLOCK = 16 * 132
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16 dense
 # on the tensor cores, HBM3.
 F32_FLOPS = 67e12
@@ -149,9 +162,9 @@ SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
                            "svdformer_pointsea_tpu/nn/flash_vjp.py:171"),
     "flash_attn_bwd_dq": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bwd.cu",
                           "svdformer_pointsea_tpu/nn/flash_vjp.py:49"),
-    "flash_attn_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16.cu",
+    "flash_attn_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_fwd.cu",
                         "svdformer_pointsea_tpu/nn/flash_vjp.py:153"),
-    "flash_attn_stats_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16.cu",
+    "flash_attn_stats_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_fwd.cu",
                               "svdformer_pointsea_tpu/nn/flash_vjp.py:160"),
     "flash_attn_bwd_dkv_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16.cu",
                                 "svdformer_pointsea_tpu/nn/flash_vjp.py:171"),
@@ -200,6 +213,31 @@ def cuda_ms(fn: Callable[[], object], iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn: Callable[[], object], reps: int = 10, replays: int = 5) -> float:
+    """Device time (ms) of one ``fn()``: ``reps`` calls captured in a CUDA
+    graph and replayed, so that no host time between launches enters it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def peak_flops(name: str) -> float:
@@ -387,36 +425,83 @@ def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
 
 
 def ptxas_report_start(kernels, tmp: str):
-    """Start ``nvcc -Xptxas -v`` on the bf16 flash source (compile only) in
-    the background; ``ptxas_report_print`` reads it."""
-    src = kernels.CSRC / "flash_attn_bf16.cu"
-    cmd = [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, "flash_attn_bf16.o"), str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    """Start ``nvcc -Xptxas -v`` on the bf16 flash sources (compile only) in
+    the background; ``ptxas_report_print`` reads them."""
+    procs = {}
+    for src in ("flash_attn_bf16", "flash_attn_bf16_fwd"):
+        cmd = [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, f"{src}.o"),
+               str(kernels.CSRC / f"{src}.cu")]
+        procs[src] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+    return procs
 
 
-def ptxas_report_print(proc) -> None:
+def fwd_config(dh: int):
+    """(dynamic shared memory bytes, keys per tile, ring stages) of the bf16
+    K3 at dh, as ``Cfg<D>`` in ``flash_attn_bf16_fwd.cu`` sets them: 1 KB of
+    alignment slack, Q's 128 rows, one K and one V tile a stage, and the
+    mbarriers (Q's, and full and empty ones for K and V a stage)."""
+    block_n = 64 if dh == 256 else 128
+    stages = {64: 4, 96: 3}.get(dh, 2)
+    smem = 1024 + 128 * dh * 2 + 2 * stages * block_n * dh * 2 + 8 * (1 + 4 * stages)
+    return smem, block_n, stages
+
+
+def ptxas_report_print(procs) -> None:
     """Registers and spills per bf16 kernel instance, and the dynamic shared
-    memory its launcher requests (3 tiles for K3, 4 for K4 / K5, of 64 rows
-    of dh + 8 bf16; K4 also 2 x 64 f32 of lse / di)."""
-    out, _ = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        fail(f"nvcc -Xptxas -v failed:\n{out}")
-    name = None
-    for line in out.splitlines():
-        m = re.search(r"(fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)ILi(\d+)E", line)
-        if m and "Compiling entry" in line:
-            name = (m.group(1), int(m.group(2)))
-        elif name and "spill" in line:
-            spills = line.strip()
-        elif name and "Used" in line and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            kind, dh = name
-            tiles = 3 if kind == "fwd_kernel" else 4
-            smem = tiles * 64 * (dh + 8) * 2 + (512 if kind == "bwd_dkv_kernel" else 0)
-            print(f"ptxas bf16 {kind} dh {dh}: {regs} registers, {spills}; dynamic shared "
-                  f"memory {smem / 1000:.1f} KB")
-            name = None
+    memory its launcher requests (K4 / K5: 4 tiles of 64 rows of dh + 8 bf16,
+    K4 also 2 x 64 f32 of lse / di; K3: ``fwd_config``). Fails if
+    the K3 spills at dh 64, 96 or 128; prints ptxas's performance warnings."""
+    for src, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v failed for {src}.cu:\n{out}")
+        name = None
+        for line in out.splitlines():
+            m = re.search(r"(wgmma_fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)ILi(\d+)E", line)
+            if "C75" in line:  # e.g. wgmma serialised, setmaxnreg ignored
+                print(f"ptxas warning ({src}.cu): " + re.sub(r"'_Z\S+'", "", line.strip()))
+            if m and "Compiling entry" in line:
+                name = (m.group(1), int(m.group(2)))
+            elif name and "spill" in line:
+                spills = line.strip()
+                spilled = re.search(r"(\d+) bytes spill stores", line).group(1) != "0"
+            elif name and "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                kind, dh = name
+                if kind == "wgmma_fwd_kernel":
+                    smem, block_n, stages = fwd_config(dh)
+                    extra = f"; {block_n} keys a tile, {stages} stages"
+                    if spilled and dh != 256:
+                        fail(f"the bf16 K3 spills at dh {dh}: {spills}")
+                else:
+                    smem = 4 * 64 * (dh + 8) * 2 + (512 if kind == "bwd_dkv_kernel" else 0)
+                    extra = ""
+                print(f"ptxas bf16 {kind} dh {dh}: {regs} registers, {spills}; dynamic shared "
+                      f"memory {smem / 1000:.1f} KB{extra}")
+                name = None
+
+
+def sass_report(kernels) -> None:
+    """Counts of the Hopper instructions in the bf16 K3's SASS: HGMMA
+    (wgmma), UTMALDG / UTMASTG (TMA load / store), MUFU.EX2; fails if the
+    first two are missing. Prints "not available" without cuobjdump."""
+    import shutil
+
+    tool = Path(kernels._nvcc()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        print("SASS of the bf16 K3: not available (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(kernels._lib_path("flash_attn_bf16_fwd"))],
+                          capture_output=True, text=True).stdout
+    counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "UTMASTG", "MUFU.EX2")}
+    print("SASS of the bf16 K3 (flash_attn_bf16_fwd.cu, 4 instances): "
+          + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        fail("the bf16 K3's SASS holds no HGMMA or no UTMALDG")
 
 
 def rel_err(got, want) -> float:
@@ -441,11 +526,14 @@ def bf16_kernel_phase(torch, kernels, flash, g) -> Dict[str, float]:
         got = torch.autograd.grad(out, ins, do)
         again = torch.autograd.grad(flash.flash_attention_train(*ins), ins, do)
         o, lse = flash._flash_kernel(q, k, v, stats=True)
+        o_rep, lse_rep = flash._flash_kernel(q, k, v, stats=True)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"bf16 K4 / K5 at ({lq}, {lk}, {dh}) gave two answers for one input")
         if not (torch.equal(o, out) and torch.equal(o, o_eval)):
             fail(f"bf16 K3 with and without statistics differ at ({lq}, {lk}, {dh})")
+        if not (torch.equal(o, o_rep) and torch.equal(lse, lse_rep)):
+            fail(f"bf16 K3 gave two answers for one input at ({lq}, {lk}, {dh})")
         o_p, lse_p = flash.attention_fwd_plain_bf16(q, k, v)
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         dk_p, dv_p = flash.attention_bwd_dkv_plain_bf16(q, k, v, lse, do, di)
@@ -467,6 +555,24 @@ def bf16_kernel_phase(torch, kernels, flash, g) -> Dict[str, float]:
             err["flash_attn_bwd_dkv_bf16"], (got[1].float() - dk_p.float()).abs().max().item(),
             (got[2].float() - dv_p.float()).abs().max().item())
         del ins, got, again, o_p, dk_p, dv_p, dq_p
+    for lq, lk, dh in SPREAD_SITES:
+        q, k, v = (torch.randn(4, n_, 8, dh, device="cuda", generator=g).to(bf)
+                   for n_ in (lq, lk, lk))
+        q = (q.float() * SPREAD).to(bf)
+        o, lse = flash._flash_kernel(q, k, v, stats=True)
+        o_eval = flash._flash_kernel(q, k, v)
+        torch.cuda.synchronize()
+        o_p, lse_p = flash.attention_fwd_plain_bf16(q, k, v)
+        rel, lse_rel = rel_err(o, o_p), ((lse - lse_p).abs() / lse_p.abs()).max().item()
+        print(f"bf16 K3+stats large spread (q x {SPREAD:g}) Lq {lq} Lk {lk} dh {dh}: |Δ|/max|ref| "
+              f"O {rel:.3e}; lse rel {lse_rel:.3e}; O without statistics bit-equal "
+              f"{torch.equal(o, o_eval)}")
+        if not (rel <= BF16_REL and lse_rel <= LSE_RTOL and torch.equal(o, o_eval)):
+            fail(f"bf16 K3 on the large spread at ({lq}, {lk}, {dh}) outside its tolerance")
+        abs_o = (o.float() - o_p.float()).abs().max().item()
+        err["flash_attn_bf16"] = max(err["flash_attn_bf16"], abs_o)
+        err["flash_attn_stats_bf16"] = max(err["flash_attn_stats_bf16"], abs_o,
+                                           (lse - lse_p).abs().max().item())
     before = dict(kernels.launches)
     try:
         flash.flash_attention_train(*(x.half().requires_grad_(True) for x in (q, k, v)))
@@ -777,6 +883,12 @@ def entry_point_phase(torch, kernels) -> Dict[str, Dict[str, int]]:
     return launches
 
 
+def sm_clock_mhz(field: str = "clocks.max.sm") -> float:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
 def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     """Kernel, plain and library time (ms) and bound summed over the calls one
     training batch of 12 makes (K1, K2, K3 with statistics, K4, K5, f32 and
@@ -784,13 +896,37 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     kernel that runs in evaluation alone), each call shape timed on its own.
     The library yardstick is scaled_dot_product_attention on the same
     tensors: its memory-efficient backend for f32, its flash backend for
-    bf16."""
+    bf16. The bf16 K3 rows also sum their flops, the floor their
+    exponentials set (B h Lq Lk at EXP_PER_CLOCK a clock, at the SM clock
+    ``nvidia-smi`` reads as its maximum) and their device times beside
+    SDPA's (``graph_ms``: where the host is slow, a call at the 512-token
+    sites takes as long on the host as on the card)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     dev = "cuda"
     out = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                   "library_ms": None} for name in kernels.KERNEL_NAMES}
+    clock_mhz = sm_clock_mhz()
+    for name in ("flash_attn_bf16", "flash_attn_stats_bf16"):
+        out[name].update(flop=0.0, exp_floor_ms=0.0, device_ms=0.0, library_device_ms=0.0)
+
+    def k3_bf16(name, b, lq, lk, dh, k_ms, lib, sdpa_fn, q, k, v, stats):
+        """Adds the bf16 K3's flops, exponential floor and device times;
+        returns the text for its timing line."""
+        r = out[name]
+        flop = 4 * b * 8 * lq * lk * dh
+        floor = 1e3 * b * 8 * lq * lk / (EXP_PER_CLOCK * clock_mhz * 1e6)
+        dev = graph_ms(lambda: flash._flash_kernel(q, k, v, stats=stats))
+        with torch.no_grad():
+            lib_dev = graph_ms(sdpa_fn)
+        r["flop"] += flop
+        r["exp_floor_ms"] += floor
+        r["device_ms"] += dev
+        r["library_device_ms"] += lib_dev
+        return (f" [{flop / k_ms / 1e9:.1f} TFLOP/s, {k_ms / lib:.3f} x sdpa, exp floor "
+                f"{floor:.4f} ms; device (CUDA graph) {dev:.4f} ms, {flop / dev / 1e9:.1f} "
+                f"TFLOP/s, sdpa {lib_dev:.4f} ms, {dev / lib_dev:.3f} x sdpa]")
 
     def add(name, k_ms, p_ms, ops, nbytes, lib_ms=None):
         r = out[name]
@@ -850,8 +986,10 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
             lib = cuda_ms(lambda: sdpa(qt, kt, vt), 10)
             name = "flash_attn" + sfx
             add(name, k_ms, p_ms, *attention_work(B_MAIN, 8, lq, lk, dh, name), lib)
+            extra = (k3_bf16(name, B_MAIN, lq, lk, dh, k_ms, lib, lambda: sdpa(qt, kt, vt), q, k,
+                             v, False) if sfx else "")
             print(f"time K3{sfx} ({lq}, {lk}, {dh}): {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"sdpa {lib:.4f} ms")
+                  f"sdpa {lib:.4f} ms{extra}")
 
         for lq, lk, dh in FLASH_SITES:
             q, k, v, do = (torch.randn(B_TRAIN, n_, 8, dh, device=dev, generator=g).to(dtype)
@@ -879,10 +1017,25 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
                                           ("flash_attn_bwd_dq" + sfx, k5, p5, lib_b),
                                           ("flash_attn_bwd_dkv" + sfx, k4, p4, lib_b)):
                 add(name, k_ms, p_ms, *attention_work(B_TRAIN, 8, lq, lk, dh, name), lib)
+            extra = (k3_bf16("flash_attn_stats_bf16", B_TRAIN, lq, lk, dh, k3, lib_f,
+                             lambda: sdpa(*(x.detach() for x in (qt, kt, vt))), q, k, v, True)
+                     if sfx else "")
             print(f"time{sfx} B{B_TRAIN} ({lq}, {lk}, {dh}): K3+stats {k3:.4f} / plain {p3:.4f} "
-                  f"/ sdpa fwd {lib_f:.4f} ms; K5 {k5:.4f} / plain {p5:.4f} ms; K4 {k4:.4f} / "
-                  f"plain {p4:.4f} ms; sdpa bwd (dq, dk, dv) {lib_b:.4f} ms")
+                  f"/ sdpa fwd {lib_f:.4f} ms{extra}; K5 {k5:.4f} / plain {p5:.4f} ms; K4 "
+                  f"{k4:.4f} / plain {p4:.4f} ms; sdpa bwd (dq, dk, dv) {lib_b:.4f} ms")
             del out_t, qt, kt, vt
+    print(f"SM clock {sm_clock_mhz('clocks.sm'):.0f} MHz after the timings (max {clock_mhz:.0f})")
+    for name, per in (("flash_attn_bf16", f"eval batch of {B_MAIN}"),
+                      ("flash_attn_stats_bf16", f"training batch of {B_TRAIN}")):
+        r = out[name]
+        print(f"time {name} per {per}: {r['ms']:.4f} ms ({r['flop'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound {r['bound_ms']:.4f} ms; "
+              f"exponential floor {r['exp_floor_ms']:.4f} ms at {clock_mhz:.0f} MHz); sdpa "
+              f"{r['library_ms']:.4f} ms, ratio {r['ms'] / r['library_ms']:.3f}; device (CUDA "
+              f"graph) {r['device_ms']:.4f} ms ({r['flop'] / r['device_ms'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of the bound), sdpa "
+              f"{r['library_device_ms']:.4f} ms, ratio "
+              f"{r['device_ms'] / r['library_device_ms']:.3f}")
     return out
 
 
@@ -980,6 +1133,7 @@ def main() -> int:
     max_err.update(bf16_kernel_phase(torch, kernels, flash, g))
     ptxas_report_print(ptxas)
     scratch.cleanup()
+    sass_report(kernels)
 
     # Evaluation main path: eval_pcn on a full-width PCN SVDFormer.
     cfg = pcn_config()
@@ -1065,6 +1219,9 @@ def main() -> int:
                     and "_stats" not in name and "_bwd" not in name
                     else f"training batch of {B_TRAIN}"),
         })
+        if "device_ms" in t:  # the bf16 K3: its and SDPA's device times (CUDA graph)
+            report["kernels"][-1].update({key: round(t[key], 4)
+                                          for key in ("device_ms", "library_device_ms")})
     for row in report["kernels"]:
         if not all(math.isfinite(row[k]) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")):
             fail(f"non-finite measurement in {row}")

@@ -1,34 +1,30 @@
-// Flash attention in bf16 on the tensor cores: forward (kernel K3, with or
-// without its row statistics), dK / dV (kernel K4) and dQ (kernel K5).
+// Flash attention backward in bf16 on the tensor cores: dK / dV (kernel K4)
+// and dQ (kernel K5). The bf16 forward (K3) is flash_attn_bf16_fwd.cu.
 //
 // Replaces: the bf16 instances of the Pallas kernels that
 // svdformer_pointsea_tpu/nn/flash_vjp.py runs when nn/layers.py::
 // _scaled_attention casts q, k and v to bf16 (--precision bf16): upstream
-// jax.experimental.pallas.ops.tpu.flash_attention._flash_attention_kernel
-// (forward), _flash_attention_dkv_kernel (dK, dV) and
-// _flash_attention_dq_kernel (dQ, through flash_vjp.py::_bwd_dq_di128).
-// Non-causal, no bias, no segment ids.
+// jax.experimental.pallas.ops.tpu.flash_attention._flash_attention_dkv_kernel
+// (dK, dV) and _flash_attention_dq_kernel (dQ, through
+// flash_vjp.py::_bwd_dq_di128). Non-causal, no bias, no segment ids.
 //
 // What they compute, the upstream kernels' function with bf16 operands and
-// f32 accumulation (bf16 x bf16 products are exact in f32):
-//   K3: S = (Q K^T) * scale in f32; online softmax in f32 (running max m,
-//       running sum l of the f32 exp(S - m)); P = exp(S - m) rounded to bf16
-//       before P V, which accumulates in f32; O = acc / l rounded to bf16;
-//       with statistics LSE = m + log l (f32), as the f32 K3 writes it.
+// f32 accumulation (bf16 x bf16 products are exact in f32), from the
+// forward's O and LSE = m + log l (f32):
 //   K4: P = exp(S - LSE) (f32); dV += bf16(P)^T dO; dP = dO V^T (f32);
 //       dS = (dP - di) * P * scale (f32); dK += bf16(dS)^T Q; dK, dV bf16.
 //   K5: the same P and dS; dQ += bf16(dS) K; dQ bf16.
 // As upstream, dS is rounded after the scale is applied; di = rowsum(O * dO)
 // in f32 comes from the caller.
 //
-// Layout: q, o, dout, dq (B, Lq, H, D); k, v, dk, dv (B, Lk, H, D), all
+// Layout: q, dout, dq (B, Lq, H, D); k, v, dk, dv (B, Lk, H, D), all
 // contiguous bf16 (the port's channels-last layout, read in place); lse, di
 // (B, H, Lq) f32. Lq and Lk are multiples of 64; D is 64, 96, 128 or 256.
 //
-// What bounds it on an H100: the tensor cores (989 TFLOP/s bf16 dense). K3
-// does 4 B H Lq Lk D flops against 2 (Lq + Lk) B H D bf16 values, far above
-// the ridge point. Design: warp-level mma.sync.m16n8k16 (bf16 in, f32
-// accumulate), operands fed by ldmatrix from shared memory; one block of
+// What bounds it on an H100: the tensor cores (989 TFLOP/s bf16 dense). K4
+// and K5 do 8 and 6 B H Lq Lk D flops against a few (Lq + Lk) B H D bf16
+// values, far above the ridge point. Design: warp-level mma.sync.m16n8k16
+// (bf16 in, f32 accumulate), operands fed by ldmatrix from shared memory; one block of
 // 4 warps per (64-row tile, head, batch), each warp owning 16 rows. Tiles
 // live in shared memory row-major with 8 bf16 of padding per row, so the 8
 // row addresses of an ldmatrix fall in 8 distinct bank groups. Products
@@ -38,7 +34,7 @@
 // fragments are already the A operands of the next product. Between two
 // products a score tile stays in registers (the m16n8k16 accumulator layout
 // of two adjacent 8-column tiles is the A-operand layout of one 16-deep
-// step). K3 and K5 stream K / V tiles of 64 keys through shared memory, K4
+// step). K5 streams K / V tiles of 64 keys through shared memory, K4
 // streams Q / dO tiles of 64 queries; no atomics: every output element is
 // summed by one thread in a fixed order, so the backward is deterministic.
 // K4 and K5 keep at most 128 output columns in registers and stream D 256 in
@@ -47,7 +43,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -196,95 +191,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t rs, const float (&a
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// ---------------------------------------------------------------- K3 ------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           bf16* __restrict__ o, float* __restrict__ lse, int heads, int lq, int lk,
-           float scale) {
-  constexpr int DT = D / 8;
-  extern __shared__ uint4 smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + Tile<D>::elems;
-  bf16* Vs = Ks + Tile<D>::elems;
-
-  const int lane = threadIdx.x & 31;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const size_t rs = (size_t)heads * D;
-  load_tile<D>(Qs, q + ((size_t)b * lq + q0) * rs + (size_t)h * D, rs);
-
-  // Rows g (accumulator elements 0, 1) and g + 8 (elements 2, 3).
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
-#pragma unroll
-  for (int c = 0; c < DT; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-
-  for (int k0 = 0; k0 < lk; k0 += kRows) {
-    __syncthreads();  // the previous K / V tiles are no longer read
-    const size_t off = ((size_t)b * lk + k0) * rs + (size_t)h * D;
-    load_tile<D>(Ks, k + off, rs);
-    load_tile<D>(Vs, v + off, rs);
-    __syncthreads();
-
-    float s[kNt][4];
-    scores<D>(s, Qs, wr, Ks, lane);
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] *= scale;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        sum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int c = 0; c < DT; ++c) {
-      acc[c][0] *= alpha[0];
-      acc[c][1] *= alpha[0];
-      acc[c][2] *= alpha[1];
-      acc[c][3] *= alpha[1];
-    }
-    accumulate<D, D>(acc, s, Vs, 0, lane);  // P rounded to bf16 here
-  }
-
-  const int row = q0 + wr;
-  store_rows<D>(o + ((size_t)b * lq + row) * rs + (size_t)h * D, rs, acc, 0, 1.f / l[0],
-                1.f / l[1], lane);
-  if (lse != nullptr && (lane & 3) == 0) {  // the quad's lanes hold the same m, l
-    float* out = lse + ((size_t)b * heads + h) * lq + row + (lane >> 2);
-    out[0] = m[0] + logf(l[0]);
-    out[8] = m[1] + logf(l[1]);
-  }
-}
-
 // ---------------------------------------------------------------- K5 ------
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -418,16 +324,6 @@ int check_shape(int batch, int heads, int lq, int lk) {
 }
 
 template <int D>
-int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int batch,
-               int heads, int lq, int lk, float scale, cudaStream_t s) {
-  const size_t smem = 3 * Tile<D>::elems * sizeof(bf16);
-  if (int err = prepare(fwd_kernel<D>, smem)) return err;
-  fwd_kernel<D><<<dim3(lq / kRows, heads, batch), kThreads, smem, s>>>(q, k, v, o, lse, heads,
-                                                                       lq, lk, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const float* lse, const bf16* dout,
               const float* di, bf16* dq, int batch, int heads, int lq, int lk, float scale,
               cudaStream_t s) {
@@ -462,22 +358,10 @@ int dispatch(int head_dim, Launch launch) {
 
 }  // namespace
 
-// All pointers are contiguous device buffers, bf16 passed as void*: q, o,
-// dout, dq (B, Lq, H, D); k, v, dk, dv (B, Lk, H, D); lse, di (B, H, Lq) f32
-// (the forward's lse may be null: no statistics). Lq, Lk multiples of 64; D
-// in {64, 96, 128, 256}. Each launches on `stream` and returns a CUDA error
-// code (0 on success).
-extern "C" int flash_attn_bf16_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                          float* lse, int batch, int heads, int lq, int lk,
-                                          int head_dim, float scale, void* stream) {
-  if (int err = check_shape(batch, heads, lq, lk)) return err;
-  return dispatch(head_dim, [&](auto d) {
-    return launch_fwd<decltype(d)::value>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                          (bf16*)o, lse, batch, heads, lq, lk, scale,
-                                          (cudaStream_t)stream);
-  });
-}
-
+// All pointers are contiguous device buffers, bf16 passed as void*: q, dout,
+// dq (B, Lq, H, D); k, v, dk, dv (B, Lk, H, D); lse, di (B, H, Lq) f32. Lq,
+// Lk multiples of 64; D in {64, 96, 128, 256}. Each launches on `stream` and
+// returns a CUDA error code (0 on success).
 extern "C" int flash_attn_bf16_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                               const float* lse, const void* dout,
                                               const float* di, void* dk, void* dv, int batch,

@@ -34,6 +34,7 @@ import torch
 from svdformer_pointsea_tpu_torch import kernels
 
 FLASH_HEAD_DIMS = (64, 96, 128, 256)
+BF16_FWD_BLOCK = 128  # the bf16 K3 takes Lq and Lk in multiples of its 128-row tiles
 
 
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -84,7 +85,7 @@ def attention_fwd_plain_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """(o bf16, lse f32) from bf16 q, k, v: the plain version of the bf16 K3.
     Scores, statistics and P·V in f32; P = exp(S − m) rounded to bf16 before
     P·V and normalised after it, as the upstream kernel does within one key
-    block (the kernel rounds per 64-key tile against the running max)."""
+    block (the kernel rounds per key tile against the running max)."""
     s = _scores(q.float(), k.float())
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -151,6 +152,8 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stats: bool
     """K3 (f32 or bf16, by q's dtype): o, or (o, lse) with ``stats``."""
     name = _kernel_name("flash_attn_stats" if stats else "flash_attn", q.dtype)
     B, Lq, Lk, H, D = _check(q, k, v, name)
+    if q.dtype == _BF16 and (Lq % BF16_FWD_BLOCK or Lk % BF16_FWD_BLOCK):
+        raise ValueError(f"{name} takes lengths % {BF16_FWD_BLOCK} == 0, got Lq {Lq}, Lk {Lk}")
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device) if stats else None
     kernels.launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -286,28 +286,38 @@ def _rel(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+# The bf16 K3's shapes (every dh at four (Lq, Lk), one of them also with q
+# scaled by 8, so that the running max moves between key tiles and the
+# accumulator's rescale is exercised) and two more dh-256 shapes.
+BF16_CASES = ([(lq, lk, dh, 1.0) for lq, lk in ((512, 512), (2048, 512), (2048, 2048),
+                                               (1024, 2048)) for dh in (64, 96, 128, 256)]
+              + [(1024, 2048, dh, 8.0) for dh in (64, 96, 128, 256)]
+              + [(512, 1024, 256, 1.0), (1024, 512, 256, 1.0)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk,dh", [(512, 512, 96), (512, 512, 64), (2048, 2048, 64),
-                                      (2048, 2048, 128), (2048, 512, 64), (512, 1024, 256),
-                                      (1024, 512, 256)])
-def test_bf16_flash_kernels_match_plain(cuda, lq, lk, dh):
-    """The bf16 K3 (O bit-equal with and without statistics), K5 and K4
-    against their bf16 plain versions on the same inputs and residuals: O,
-    dq, dk, dv within 1e-2 · max|ref|, LSE within 1e-5 relative; a second
-    backward gives the same bits (no atomics)."""
+@pytest.mark.parametrize("lq,lk,dh,spread", BF16_CASES)
+def test_bf16_flash_kernels_match_plain(cuda, lq, lk, dh, spread):
+    """The bf16 K3 (O bit-equal with and without statistics and on a
+    repeat), K5 and K4 against their bf16 plain versions on the same inputs
+    and residuals: O, dq, dk, dv within 1e-2 · max|ref|, LSE within 1e-5
+    relative; a second backward gives the same bits (no atomics)."""
     q, k, v, do = _qkv(cuda, lq, lk, dh, dtype=torch.bfloat16)
+    q = (q.float() * spread).to(torch.bfloat16)
     before = dict(kernels.launches)
     o, lse = flash._flash_kernel(q, k, v, stats=True)
     o_eval = flash._flash_kernel(q, k, v)
+    o_again, lse_again = flash._flash_kernel(q, k, v, stats=True)
     di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     got = flash._bwd_kernels(q, k, v, lse, do, di)
     again = flash._bwd_kernels(q, k, v, lse, do, di)
     torch.cuda.synchronize()
     moved = {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES}
     assert {n: c for n, c in moved.items() if c} == {
-        "flash_attn_bf16": 1, "flash_attn_stats_bf16": 1, "flash_attn_bwd_dq_bf16": 2,
+        "flash_attn_bf16": 1, "flash_attn_stats_bf16": 2, "flash_attn_bwd_dq_bf16": 2,
         "flash_attn_bwd_dkv_bf16": 2}
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32 and torch.equal(o, o_eval)
+    assert torch.equal(o, o_again) and torch.equal(lse, lse_again)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     o_p, lse_p = flash.attention_fwd_plain_bf16(q, k, v)
     assert _rel(o, o_p) <= BF16_REL
@@ -316,6 +326,31 @@ def test_bf16_flash_kernels_match_plain(cuda, lq, lk, dh):
     dq_p = flash.attention_bwd_dq_plain_bf16(q, k, v, lse, do, di)
     for a, b in zip(got, (dq_p, dk_p, dv_p)):
         assert a.dtype == torch.bfloat16 and _rel(a, b) <= BF16_REL
+
+
+def test_bf16_forward_is_bound_to_its_own_source():
+    """The bf16 K3, without and with statistics, is the TMA / wgmma kernel of
+    flash_attn_bf16_fwd.cu; the bf16 K4 and K5 stay in flash_attn_bf16.cu."""
+    for name in ("flash_attn_bf16", "flash_attn_stats_bf16"):
+        assert kernels._ENTRY[name][:2] == ("flash_attn_bf16_fwd", "flash_attn_bf16_fwd_launch")
+    for name in ("flash_attn_bwd_dkv_bf16", "flash_attn_bwd_dq_bf16"):
+        assert kernels._ENTRY[name][0] == "flash_attn_bf16"
+    assert "flash_attn_bf16_fwd" in kernels.SOURCES
+    assert (kernels.CSRC / "flash_attn_bf16_fwd.cu").is_file()
+
+
+@pytest.mark.cuda
+def test_bf16_forward_refuses_lengths_off_its_tiles(cuda):
+    """Lq or Lk not a multiple of 128 (576 is one of 64, which the bf16 K4
+    and K5 take) is refused by the wrapper before any launch."""
+    q, k, v, _ = _qkv(cuda, 576, 512, 64, dtype=torch.bfloat16)
+    before = dict(kernels.launches)
+    for stats in (False, True):
+        with pytest.raises(ValueError, match="% 128"):
+            flash._flash_kernel(q, k, v, stats=stats)
+        with pytest.raises(ValueError, match="% 128"):
+            flash._flash_kernel(k, q, q, stats=stats)  # Lq 512, Lk 576
+    assert kernels.launches == before
 
 
 @pytest.mark.cuda
