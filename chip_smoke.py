@@ -14,14 +14,15 @@ Phases (any failure exits non-zero):
    autograd through the naive math and against their own second run (bit
    for bit: no atomics);
 3. the same for the bf16 kernels at every attention site and at dh 256: bf16
-   K3 without and with statistics (the TMA / wgmma kernel of
-   ``flash_attn_bf16_fwd.cu``), K5 and K4 against their bf16 plain versions
-   (|Δ| ≤ 1e-2 · max|ref|, LSE 1e-5 relative), O bit-equal with and without
-   statistics and on a repeat, a second bf16 backward bit-equal, and an f16
-   input refused; the bf16 K3 also on a large-spread case (q × 8: the
-   running max moves between key tiles); ``-Xptxas -v`` of the bf16 sources
-   (no spills in the K3 at dh 64, 96, 128) and the K3's SASS (``HGMMA``,
-   ``UTMALDG``);
+   K3 without and with statistics (``flash_attn_bf16_fwd.cu``), K5 and K4
+   (``flash_attn_bf16_bwd.cu``; all TMA / wgmma kernels) against their bf16
+   plain versions (|Δ| ≤ 1e-2 · max|ref|, LSE 1e-5 relative), O bit-equal
+   with and without statistics and on a repeat, a second bf16 backward
+   bit-equal, and an f16 input refused; all of them also on large-spread
+   cases (q × 8: the running max moves between key tiles); ``-Xptxas -v`` of
+   both bf16 sources (no spill in any K3, K4 or K5 instance at dh 64, 96,
+   128; the dynamic shared memory from each launcher's export) and their
+   SASS (``HGMMA``, ``UTMALDG``);
 4. evaluation main path: ``eval_pcn`` on a full-width PCN SVDFormer (random
    weights from a seeded generator) over 3 synthetic batches of 8, with the
    launch counters zeroed just before and read just after; every kernel of
@@ -57,9 +58,11 @@ Phases (any failure exits non-zero):
    batch of 12, and K3 per evaluation batch of 8; the attention kernels
    beside ``scaled_dot_product_attention`` forward / backward as a
    yardstick: f32 on its memory-efficient backend, bf16 on its flash
-   backend; the bf16 K3 with its TFLOP/s, its ratio to SDPA, the floor its
-   exponentials set, its device time from a CUDA graph beside SDPA's); a
-   profiler breakdown of both train steps by kernel family.
+   backend; the bf16 K3, K4 and K5 with their TFLOP/s, the floor their
+   exponentials set, their device times from CUDA graphs beside SDPA's, and
+   for the backward the di pass's, so that di + K5 + K4 stands beside SDPA's
+   one flash backward call); a profiler breakdown of both train steps by
+   kernel family.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -166,11 +169,17 @@ SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
                         "svdformer_pointsea_tpu/nn/flash_vjp.py:153"),
     "flash_attn_stats_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_fwd.cu",
                               "svdformer_pointsea_tpu/nn/flash_vjp.py:160"),
-    "flash_attn_bwd_dkv_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16.cu",
+    "flash_attn_bwd_dkv_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_bwd.cu",
                                 "svdformer_pointsea_tpu/nn/flash_vjp.py:171"),
-    "flash_attn_bwd_dq_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16.cu",
+    "flash_attn_bwd_dq_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_bwd.cu",
                                "svdformer_pointsea_tpu/nn/flash_vjp.py:49"),
 }
+# The TMA / wgmma sources: ptxas and SASS reports; per kernel, the C export
+# that returns the dynamic shared memory its launcher requests at a head dim.
+BF16_SOURCES = ("flash_attn_bf16_fwd", "flash_attn_bf16_bwd")
+SMEM_EXPORTS = {"wgmma_fwd_kernel": ("flash_attn_bf16_fwd", "flash_attn_bf16_fwd_smem"),
+                "bwd_dq_kernel": ("flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dq_smem"),
+                "bwd_dkv_kernel": ("flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dkv_smem")}
 # Device-kernel name patterns of the train step's profile, first match wins.
 PROFILE_FAMILIES = [
     ("K3 flash forward", r"flash_fwd_kernel"),
@@ -428,7 +437,7 @@ def ptxas_report_start(kernels, tmp: str):
     """Start ``nvcc -Xptxas -v`` on the bf16 flash sources (compile only) in
     the background; ``ptxas_report_print`` reads them."""
     procs = {}
-    for src in ("flash_attn_bf16", "flash_attn_bf16_fwd"):
+    for src in BF16_SOURCES:
         cmd = [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, f"{src}.o"),
                str(kernels.CSRC / f"{src}.cu")]
@@ -437,22 +446,13 @@ def ptxas_report_start(kernels, tmp: str):
     return procs
 
 
-def fwd_config(dh: int):
-    """(dynamic shared memory bytes, keys per tile, ring stages) of the bf16
-    K3 at dh, as ``Cfg<D>`` in ``flash_attn_bf16_fwd.cu`` sets them: 1 KB of
-    alignment slack, Q's 128 rows, one K and one V tile a stage, and the
-    mbarriers (Q's, and full and empty ones for K and V a stage)."""
-    block_n = 64 if dh == 256 else 128
-    stages = {64: 4, 96: 3}.get(dh, 2)
-    smem = 1024 + 128 * dh * 2 + 2 * stages * block_n * dh * 2 + 8 * (1 + 4 * stages)
-    return smem, block_n, stages
+def ptxas_report_print(kernels, procs) -> None:
+    """Registers and spills per bf16 kernel instance (K3, K5, K4), and the
+    dynamic shared memory its launcher requests, read from the built
+    library's export (``SMEM_EXPORTS``). Fails if an instance spills at dh
+    64, 96 or 128; prints ptxas's performance warnings."""
+    import ctypes
 
-
-def ptxas_report_print(procs) -> None:
-    """Registers and spills per bf16 kernel instance, and the dynamic shared
-    memory its launcher requests (K4 / K5: 4 tiles of 64 rows of dh + 8 bf16,
-    K4 also 2 x 64 f32 of lse / di; K3: ``fwd_config``). Fails if
-    the K3 spills at dh 64, 96 or 128; prints ptxas's performance warnings."""
     for src, proc in procs.items():
         out, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
@@ -470,38 +470,37 @@ def ptxas_report_print(procs) -> None:
             elif name and "Used" in line and "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 kind, dh = name
-                if kind == "wgmma_fwd_kernel":
-                    smem, block_n, stages = fwd_config(dh)
-                    extra = f"; {block_n} keys a tile, {stages} stages"
-                    if spilled and dh != 256:
-                        fail(f"the bf16 K3 spills at dh {dh}: {spills}")
-                else:
-                    smem = 4 * 64 * (dh + 8) * 2 + (512 if kind == "bwd_dkv_kernel" else 0)
-                    extra = ""
+                lib, export = SMEM_EXPORTS[kind]
+                smem_fn = getattr(kernels._libs[lib], export)
+                smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
+                if spilled and dh != 256:
+                    fail(f"the bf16 {kind} spills at dh {dh}: {spills}")
                 print(f"ptxas bf16 {kind} dh {dh}: {regs} registers, {spills}; dynamic shared "
-                      f"memory {smem / 1000:.1f} KB{extra}")
+                      f"memory {smem_fn(dh) / 1000:.1f} KB")
                 name = None
 
 
 def sass_report(kernels) -> None:
-    """Counts of the Hopper instructions in the bf16 K3's SASS: HGMMA
-    (wgmma), UTMALDG / UTMASTG (TMA load / store), MUFU.EX2; fails if the
-    first two are missing. Prints "not available" without cuobjdump."""
+    """Counts of the Hopper instructions in the SASS of each bf16 library:
+    HGMMA (wgmma), UTMALDG / UTMASTG (TMA load / store), MUFU.EX2; fails if
+    either library lacks the first two. Prints "not available" without
+    cuobjdump."""
     import shutil
 
     tool = Path(kernels._nvcc()).parent / "cuobjdump"
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
-    if tool is None:
-        print("SASS of the bf16 K3: not available (no cuobjdump)")
-        return
-    sass = subprocess.run([tool, "-sass", str(kernels._lib_path("flash_attn_bf16_fwd"))],
-                          capture_output=True, text=True).stdout
-    counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
-              for op in ("HGMMA", "UTMALDG", "UTMASTG", "MUFU.EX2")}
-    print("SASS of the bf16 K3 (flash_attn_bf16_fwd.cu, 4 instances): "
-          + ", ".join(f"{op} {n}" for op, n in counts.items()))
-    if not (counts["HGMMA"] and counts["UTMALDG"]):
-        fail("the bf16 K3's SASS holds no HGMMA or no UTMALDG")
+    for src in BF16_SOURCES:
+        if tool is None:
+            print(f"SASS of {src}.cu: not available (no cuobjdump)")
+            continue
+        sass = subprocess.run([tool, "-sass", str(kernels._lib_path(src))],
+                              capture_output=True, text=True).stdout
+        counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+                  for op in ("HGMMA", "UTMALDG", "UTMASTG", "MUFU.EX2")}
+        print(f"SASS of {src}.cu (4 instances a kernel): "
+              + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            fail(f"the SASS of {src}.cu holds no HGMMA or no UTMALDG")
 
 
 def rel_err(got, want) -> float:
@@ -511,10 +510,10 @@ def rel_err(got, want) -> float:
 
 def bf16_kernel_phase(torch, kernels, flash, g) -> Dict[str, float]:
     """The bf16 K3 (without and with statistics), K5 and K4 against their
-    bf16 plain versions at every attention site and at dh 256, B = 4: O,
-    dq, dk, dv within BF16_REL of max|ref|, LSE within LSE_RTOL; a second
-    backward bit-equal; an f16 input refused. Returns the max abs error per
-    kernel."""
+    bf16 plain versions at every attention site, at dh 256 and on the
+    large-spread sites (q x SPREAD), B = 4: O, dq, dk, dv within BF16_REL
+    of max|ref|, LSE within LSE_RTOL; a second backward bit-equal; an f16
+    input refused. Returns the max abs error per kernel."""
     bf = torch.bfloat16
     err = {name: 0.0 for name in BF16_KERNELS}
     for lq, lk, dh in sorted(set(FLASH_SITES)) + [(512, 512, 256), (2048, 2048, 256)]:
@@ -535,7 +534,7 @@ def bf16_kernel_phase(torch, kernels, flash, g) -> Dict[str, float]:
         if not (torch.equal(o, o_rep) and torch.equal(lse, lse_rep)):
             fail(f"bf16 K3 gave two answers for one input at ({lq}, {lk}, {dh})")
         o_p, lse_p = flash.attention_fwd_plain_bf16(q, k, v)
-        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        di = flash.attention_di(o, do)
         dk_p, dv_p = flash.attention_bwd_dkv_plain_bf16(q, k, v, lse, do, di)
         dq_p = flash.attention_bwd_dq_plain_bf16(q, k, v, lse, do, di)
         lse_rel = ((lse - lse_p).abs() / lse_p.abs()).max().item()
@@ -556,23 +555,36 @@ def bf16_kernel_phase(torch, kernels, flash, g) -> Dict[str, float]:
             (got[2].float() - dv_p.float()).abs().max().item())
         del ins, got, again, o_p, dk_p, dv_p, dq_p
     for lq, lk, dh in SPREAD_SITES:
-        q, k, v = (torch.randn(4, n_, 8, dh, device="cuda", generator=g).to(bf)
-                   for n_ in (lq, lk, lk))
+        q, k, v, do = (torch.randn(4, n_, 8, dh, device="cuda", generator=g).to(bf)
+                       for n_ in (lq, lk, lk, lq))
         q = (q.float() * SPREAD).to(bf)
         o, lse = flash._flash_kernel(q, k, v, stats=True)
         o_eval = flash._flash_kernel(q, k, v)
+        di = flash.attention_di(o, do)
+        got = flash._bwd_kernels(q, k, v, lse, do, di)
         torch.cuda.synchronize()
         o_p, lse_p = flash.attention_fwd_plain_bf16(q, k, v)
-        rel, lse_rel = rel_err(o, o_p), ((lse - lse_p).abs() / lse_p.abs()).max().item()
-        print(f"bf16 K3+stats large spread (q x {SPREAD:g}) Lq {lq} Lk {lk} dh {dh}: |Δ|/max|ref| "
-              f"O {rel:.3e}; lse rel {lse_rel:.3e}; O without statistics bit-equal "
-              f"{torch.equal(o, o_eval)}")
-        if not (rel <= BF16_REL and lse_rel <= LSE_RTOL and torch.equal(o, o_eval)):
-            fail(f"bf16 K3 on the large spread at ({lq}, {lk}, {dh}) outside its tolerance")
+        dk_p, dv_p = flash.attention_bwd_dkv_plain_bf16(q, k, v, lse, do, di)
+        dq_p = flash.attention_bwd_dq_plain_bf16(q, k, v, lse, do, di)
+        rels = {"O": rel_err(o, o_p), "dq": rel_err(got[0], dq_p), "dk": rel_err(got[1], dk_p),
+                "dv": rel_err(got[2], dv_p)}
+        lse_rel = ((lse - lse_p).abs() / lse_p.abs()).max().item()
+        print(f"bf16 K3+stats/K5/K4 large spread (q x {SPREAD:g}) Lq {lq} Lk {lk} dh {dh}: "
+              "|Δ|/max|ref| " + ", ".join(f"{n} {e:.3e}" for n, e in rels.items())
+              + f"; lse rel {lse_rel:.3e}; O without statistics bit-equal {torch.equal(o, o_eval)}")
+        if not (max(rels.values()) <= BF16_REL and lse_rel <= LSE_RTOL and torch.equal(o, o_eval)):
+            fail(f"bf16 flash kernels on the large spread at ({lq}, {lk}, {dh}) outside their "
+                 "tolerance")
         abs_o = (o.float() - o_p.float()).abs().max().item()
         err["flash_attn_bf16"] = max(err["flash_attn_bf16"], abs_o)
         err["flash_attn_stats_bf16"] = max(err["flash_attn_stats_bf16"], abs_o,
                                            (lse - lse_p).abs().max().item())
+        err["flash_attn_bwd_dq_bf16"] = max(err["flash_attn_bwd_dq_bf16"],
+                                            (got[0].float() - dq_p.float()).abs().max().item())
+        err["flash_attn_bwd_dkv_bf16"] = max(
+            err["flash_attn_bwd_dkv_bf16"], (got[1].float() - dk_p.float()).abs().max().item(),
+            (got[2].float() - dv_p.float()).abs().max().item())
+        del got, o_p, dk_p, dv_p, dq_p
     before = dict(kernels.launches)
     try:
         flash.flash_attention_train(*(x.half().requires_grad_(True) for x in (q, k, v)))
@@ -889,6 +901,18 @@ def sm_clock_mhz(field: str = "clocks.max.sm") -> float:
     return float(out.strip().splitlines()[0])
 
 
+def sdpa_flash_backward(torch, qt, kt, vt, dot) -> Callable[[], object]:
+    """One call of SDPA's flash backward (the aten op under
+    ``scaled_dot_product_attention``'s flash backend) on (B, h, L, dh)
+    views, from its forward's outputs computed here once: dq, dk, dv, and its
+    own rowsum(O ∘ dO) inside."""
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt)
+    o, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    return lambda: bwd(dot, qt, kt, vt, o, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed,
+                       offset)
+
+
 def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     """Kernel, plain and library time (ms) and bound summed over the calls one
     training batch of 12 makes (K1, K2, K3 with statistics, K4, K5, f32 and
@@ -896,11 +920,13 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     kernel that runs in evaluation alone), each call shape timed on its own.
     The library yardstick is scaled_dot_product_attention on the same
     tensors: its memory-efficient backend for f32, its flash backend for
-    bf16. The bf16 K3 rows also sum their flops, the floor their
-    exponentials set (B h Lq Lk at EXP_PER_CLOCK a clock, at the SM clock
-    ``nvidia-smi`` reads as its maximum) and their device times beside
+    bf16. The bf16 K3, K4 and K5 rows also sum their flops, the floor
+    their exponentials set (B h Lq Lk at EXP_PER_CLOCK a clock, at the SM
+    clock ``nvidia-smi`` reads as its maximum) and their device times beside
     SDPA's (``graph_ms``: where the host is slow, a call at the 512-token
-    sites takes as long on the host as on the card)."""
+    sites takes as long on the host as on the card); K4 and K5 beside SDPA's
+    one flash backward call, whose device time includes its own di, so the
+    di pass's device time is summed too (on the K5 row)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -908,15 +934,19 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     out = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                   "library_ms": None} for name in kernels.KERNEL_NAMES}
     clock_mhz = sm_clock_mhz()
-    for name in ("flash_attn_bf16", "flash_attn_stats_bf16"):
+    for name in BF16_KERNELS:
         out[name].update(flop=0.0, exp_floor_ms=0.0, device_ms=0.0, library_device_ms=0.0)
+    out["flash_attn_bwd_dq_bf16"]["di_device_ms"] = 0.0
+
+    def exp_floor_ms(b, lq, lk):
+        return 1e3 * b * 8 * lq * lk / (EXP_PER_CLOCK * clock_mhz * 1e6)
 
     def k3_bf16(name, b, lq, lk, dh, k_ms, lib, sdpa_fn, q, k, v, stats):
         """Adds the bf16 K3's flops, exponential floor and device times;
         returns the text for its timing line."""
         r = out[name]
         flop = 4 * b * 8 * lq * lk * dh
-        floor = 1e3 * b * 8 * lq * lk / (EXP_PER_CLOCK * clock_mhz * 1e6)
+        floor = exp_floor_ms(b, lq, lk)
         dev = graph_ms(lambda: flash._flash_kernel(q, k, v, stats=stats))
         with torch.no_grad():
             lib_dev = graph_ms(sdpa_fn)
@@ -927,6 +957,31 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
         return (f" [{flop / k_ms / 1e9:.1f} TFLOP/s, {k_ms / lib:.3f} x sdpa, exp floor "
                 f"{floor:.4f} ms; device (CUDA graph) {dev:.4f} ms, {flop / dev / 1e9:.1f} "
                 f"TFLOP/s, sdpa {lib_dev:.4f} ms, {dev / lib_dev:.3f} x sdpa]")
+
+    def bwd_bf16(b, lq, lk, dh, k_ms, run, run_di, run_sdpa):
+        """Adds the bf16 K5's and K4's flops, exponential floors and device
+        times (``k_ms``, ``run``: per kernel name), the di pass's and SDPA's
+        flash backward's; returns the text for the timing line."""
+        floor = exp_floor_ms(b, lq, lk)
+        dev = {name: graph_ms(fn) for name, fn in run.items()}
+        dev_di = graph_ms(run_di)
+        with torch.no_grad():
+            lib_dev = graph_ms(run_sdpa)
+        text = []
+        for name, label in (("flash_attn_bwd_dq_bf16", "K5"), ("flash_attn_bwd_dkv_bf16", "K4")):
+            r = out[name]
+            flop = _ATTN_FLOPS[name[:-len("_bf16")]] * b * 8 * lq * lk * dh
+            r["flop"] += flop
+            r["exp_floor_ms"] += floor
+            r["device_ms"] += dev[name]
+            r["library_device_ms"] += lib_dev
+            text.append(f"{label} {flop / k_ms[name] / 1e9:.1f} TFLOP/s, device {dev[name]:.4f} ms "
+                        f"({flop / dev[name] / 1e9:.1f} TFLOP/s)")
+        out["flash_attn_bwd_dq_bf16"]["di_device_ms"] += dev_di
+        total = dev_di + sum(dev.values())
+        return (" [" + "; ".join(text) + f"; exp floor {floor:.4f} ms each; device di pass "
+                f"{dev_di:.4f} ms, di + K5 + K4 {total:.4f} ms, sdpa bwd {lib_dev:.4f} ms, "
+                f"{total / lib_dev:.3f} x sdpa]")
 
     def add(name, k_ms, p_ms, ops, nbytes, lib_ms=None):
         r = out[name]
@@ -999,14 +1054,17 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
             qt, kt, vt = (x.transpose(1, 2).requires_grad_(True) for x in (q, k, v))
             lib_f = cuda_ms(lambda: sdpa(qt, kt, vt), 5)
             o, lse = flash._flash_kernel(q, k, v, stats=True)
-            di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            di = flash.attention_di(o, do)
             ptrs = [x.data_ptr() for x in (q, k, v, lse, do, di)]
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
             shape = (B_TRAIN, 8, lq, lk, dh, 1.0 / math.sqrt(dh))
-            k5 = cuda_ms(lambda: kernels.launch("flash_attn_bwd_dq" + sfx, q.device, *ptrs,
-                                                dq.data_ptr(), *shape), 5)
-            k4 = cuda_ms(lambda: kernels.launch("flash_attn_bwd_dkv" + sfx, q.device, *ptrs,
-                                                dk.data_ptr(), dv.data_ptr(), *shape), 5)
+            run = {"flash_attn_bwd_dq" + sfx: lambda: kernels.launch(
+                       "flash_attn_bwd_dq" + sfx, q.device, *ptrs, dq.data_ptr(), *shape),
+                   "flash_attn_bwd_dkv" + sfx: lambda: kernels.launch(
+                       "flash_attn_bwd_dkv" + sfx, q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
+                       *shape)}
+            bwd_ms = {name: cuda_ms(fn, 5) for name, fn in run.items()}
+            k5, k4 = bwd_ms["flash_attn_bwd_dq" + sfx], bwd_ms["flash_attn_bwd_dkv" + sfx]
             p5 = cuda_ms(lambda: dq_plain(q, k, v, lse, do, di), 2, warmup=1)
             p4 = cuda_ms(lambda: dkv_plain(q, k, v, lse, do, di), 2, warmup=1)
             out_t = sdpa(qt, kt, vt)
@@ -1017,25 +1075,37 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
                                           ("flash_attn_bwd_dq" + sfx, k5, p5, lib_b),
                                           ("flash_attn_bwd_dkv" + sfx, k4, p4, lib_b)):
                 add(name, k_ms, p_ms, *attention_work(B_TRAIN, 8, lq, lk, dh, name), lib)
-            extra = (k3_bf16("flash_attn_stats_bf16", B_TRAIN, lq, lk, dh, k3, lib_f,
-                             lambda: sdpa(*(x.detach() for x in (qt, kt, vt))), q, k, v, True)
-                     if sfx else "")
+            extra, extra_bwd = "", ""
+            if sfx:
+                detached = [x.detach() for x in (qt, kt, vt)]
+                extra = k3_bf16("flash_attn_stats_bf16", B_TRAIN, lq, lk, dh, k3, lib_f,
+                                lambda: sdpa(*detached), q, k, v, True)
+                extra_bwd = bwd_bf16(B_TRAIN, lq, lk, dh, bwd_ms, run,
+                                     lambda: flash.attention_di(o, do),
+                                     sdpa_flash_backward(torch, *detached, dot))
             print(f"time{sfx} B{B_TRAIN} ({lq}, {lk}, {dh}): K3+stats {k3:.4f} / plain {p3:.4f} "
                   f"/ sdpa fwd {lib_f:.4f} ms{extra}; K5 {k5:.4f} / plain {p5:.4f} ms; K4 "
-                  f"{k4:.4f} / plain {p4:.4f} ms; sdpa bwd (dq, dk, dv) {lib_b:.4f} ms")
+                  f"{k4:.4f} / plain {p4:.4f} ms; sdpa bwd (dq, dk, dv) {lib_b:.4f} ms{extra_bwd}")
             del out_t, qt, kt, vt
     print(f"SM clock {sm_clock_mhz('clocks.sm'):.0f} MHz after the timings (max {clock_mhz:.0f})")
-    for name, per in (("flash_attn_bf16", f"eval batch of {B_MAIN}"),
-                      ("flash_attn_stats_bf16", f"training batch of {B_TRAIN}")):
+    for name in BF16_KERNELS:
         r = out[name]
+        per = f"eval batch of {B_MAIN}" if name == "flash_attn_bf16" else f"training batch of {B_TRAIN}"
+        lib = "sdpa bwd" if "_bwd" in name else "sdpa"
         print(f"time {name} per {per}: {r['ms']:.4f} ms ({r['flop'] / r['ms'] / 1e9:.1f} TFLOP/s, "
               f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound {r['bound_ms']:.4f} ms; "
-              f"exponential floor {r['exp_floor_ms']:.4f} ms at {clock_mhz:.0f} MHz); sdpa "
+              f"exponential floor {r['exp_floor_ms']:.4f} ms at {clock_mhz:.0f} MHz); {lib} "
               f"{r['library_ms']:.4f} ms, ratio {r['ms'] / r['library_ms']:.3f}; device (CUDA "
               f"graph) {r['device_ms']:.4f} ms ({r['flop'] / r['device_ms'] / 1e9:.1f} TFLOP/s, "
-              f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of the bound), sdpa "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of the bound), {lib} "
               f"{r['library_device_ms']:.4f} ms, ratio "
               f"{r['device_ms'] / r['library_device_ms']:.3f}")
+    r5, r4 = out["flash_attn_bwd_dq_bf16"], out["flash_attn_bwd_dkv_bf16"]
+    total = r5["di_device_ms"] + r5["device_ms"] + r4["device_ms"]
+    print(f"time bf16 backward per training batch of {B_TRAIN}, device (CUDA graph): di pass "
+          f"{r5['di_device_ms']:.4f} + K5 {r5['device_ms']:.4f} + K4 {r4['device_ms']:.4f} = "
+          f"{total:.4f} ms; sdpa flash backward {r5['library_device_ms']:.4f} ms; ratio "
+          f"{total / r5['library_device_ms']:.3f}")
     return out
 
 
@@ -1131,7 +1201,7 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = kernel_phase(torch, ops, flash, g)
     max_err.update(bf16_kernel_phase(torch, kernels, flash, g))
-    ptxas_report_print(ptxas)
+    ptxas_report_print(kernels, ptxas)
     scratch.cleanup()
     sass_report(kernels)
 

@@ -22,9 +22,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
+import os
 import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
@@ -56,6 +56,21 @@ def forward(fn, q, k, v, stats: bool):
     return o
 
 
+def build_other(other: Path) -> ctypes.CDLL:
+    """Compile ``other`` with the port's nvcc flags into the build directory
+    while the port's own kernels build, and load it; raises if nvcc fails."""
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = kernels.BUILD_DIR / f"libother-{os.getpid()}.so"
+    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
+                             str(other.resolve())], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    kernels.build()
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {other}:\n{out}")
+    return ctypes.CDLL(str(so))
+
+
 def host_us(fn, n: int = 400) -> float:
     """Host µs per call of ``fn`` (the launches queue; the card is not waited for)."""
     fn()
@@ -84,17 +99,7 @@ def main() -> int:
 
     disable_tf32()
     print(cs.smi_line())
-    tmp = tempfile.TemporaryDirectory()
-    so = Path(tmp.name) / "libother.so"
-    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
-                             str(args.other.resolve())], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    kernels.build()
-    out, _ = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        print(f"bench_bf16_fwd: nvcc failed for {args.other}:\n{out}", file=sys.stderr)
-        return 1
-    fns = {"port": bind(kernels._libs["flash_attn_bf16_fwd"]), "other": bind(ctypes.CDLL(str(so)))}
+    fns = {"port": bind(kernels._libs["flash_attn_bf16_fwd"]), "other": bind(build_other(args.other))}
 
     def sdpa(qt, kt, vt):
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
@@ -148,7 +153,6 @@ def main() -> int:
     print("host µs per launch, B 1 (512, 512, 64): "
           + ", ".join(f"{name} {us:.2f}" for name, us in per.items()))
     print(cs.smi_line())
-    tmp.cleanup()
     if not ok:
         print("bench_bf16_fwd: a kernel's O is outside 1e-2 · max|ref|", file=sys.stderr)
     return 0 if ok else 1

@@ -4,11 +4,12 @@ Each ``csrc/<source>.cu`` has plain C entry points and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
 library under ``build/torch_kernels/`` of the checkout, then loaded with
 ``ctypes``. One source may hold several kernels (``flash_attn_bwd.cu``: K4 and
-K5; ``flash_attn_bf16.cu``: the bf16 K4 and K5) or serve two kernel names
+K5; ``flash_attn_bf16_bwd.cu``: the bf16 K4 and K5) or serve two kernel names
 (``flash_attn.cu`` and ``flash_attn_bf16_fwd.cu``: K3 without and with its row
-statistics), each with its own launch counter. Nothing is compiled or loaded
-at import time, so the package imports on a machine without a GPU or a CUDA
-toolkit.
+statistics), each with its own launch counter. The bf16 sources include
+``csrc/sm90.cuh``; a library's name hashes its source, the headers and the
+flags. Nothing is compiled or loaded at import time, so the package imports on
+a machine without a GPU or a CUDA toolkit.
 
 Every wrapper in ``ops/`` and ``nn/`` decides its path the same way
 (:func:`use_kernel`): a CPU tensor takes the plain PyTorch version, a CUDA
@@ -58,15 +59,15 @@ _ENTRY = {
                            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attn_bwd_dq": ("flash_attn_bwd", "flash_attn_bwd_dq_launch",
                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    # The bf16 instances of K3 (without and with statistics: TMA and wgmma),
-    # K4 and K5, on the tensor cores (--precision bf16).
+    # The bf16 instances of K3 (without and with statistics), K4 and K5, on
+    # TMA and wgmma (--precision bf16).
     "flash_attn_bf16": ("flash_attn_bf16_fwd", "flash_attn_bf16_fwd_launch",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attn_stats_bf16": ("flash_attn_bf16_fwd", "flash_attn_bf16_fwd_launch",
                               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_attn_bwd_dkv_bf16": ("flash_attn_bf16", "flash_attn_bf16_bwd_dkv_launch",
+    "flash_attn_bwd_dkv_bf16": ("flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dkv_launch",
                                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_attn_bwd_dq_bf16": ("flash_attn_bf16", "flash_attn_bf16_bwd_dq_launch",
+    "flash_attn_bwd_dq_bf16": ("flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dq_launch",
                                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
 }
 KERNEL_NAMES = tuple(_ENTRY)
@@ -118,7 +119,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    src = (CSRC / f"{source}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source}-{tag}.so"
 

@@ -34,7 +34,9 @@ import torch
 from svdformer_pointsea_tpu_torch import kernels
 
 FLASH_HEAD_DIMS = (64, 96, 128, 256)
-BF16_FWD_BLOCK = 128  # the bf16 K3 takes Lq and Lk in multiples of its 128-row tiles
+# Lq and Lk are multiples of the kernels' row tiles: 64 rows for the f32 K3 /
+# K4 / K5, 128 for their bf16 instances.
+FLASH_BLOCK = {torch.float32: 64, torch.bfloat16: 128}
 
 
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -78,7 +80,6 @@ def attention_bwd_dq_plain(q, k, v, lse, do, di):
 
 
 _BF16 = torch.bfloat16
-FLASH_DTYPES = (torch.float32, _BF16)
 
 
 def attention_fwd_plain_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -117,6 +118,12 @@ def attention_bwd_dq_plain_bf16(q, k, v, lse, do, di):
     return torch.einsum("bhqk,bkhd->bqhd", ds.to(_BF16).float(), k.float()).to(_BF16)
 
 
+def attention_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = rowsum(o ∘ do) in f32, (B, h, Lq): the backward's row term, which
+    flash_vjp.py computes outside the kernels."""
+    return (o.float() * do).sum(-1).transpose(1, 2).contiguous()  # do promoted to f32
+
+
 def _plain_fwd(q, k, v):
     return attention_fwd_plain_bf16(q, k, v) if q.dtype == _BF16 else attention_fwd_plain(q, k, v)
 
@@ -134,7 +141,7 @@ def _kernel_name(base: str, dtype: torch.dtype) -> str:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
-    if q.dtype not in FLASH_DTYPES:
+    if q.dtype not in FLASH_BLOCK:
         raise ValueError(f"{name}: expected torch.float32 or torch.bfloat16, got {q.dtype}")
     for t, arg in ((q, "q"), (k, "k"), (v, "v")):
         kernels.check_cuda_input(t, f"{name} {arg}", q.dtype, 4, align=16)  # 16-byte loads
@@ -142,8 +149,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
     Lk = k.shape[1]
     if k.shape != (B, Lk, H, D) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in FLASH_HEAD_DIMS or Lq % 64 or Lk % 64 or Lk == 0:
-        raise ValueError(f"{name} takes dh in {FLASH_HEAD_DIMS} and lengths % 64 == 0, "
+    block = FLASH_BLOCK[q.dtype]
+    if D not in FLASH_HEAD_DIMS or Lq % block or Lk % block or Lk == 0:
+        raise ValueError(f"{name} takes dh in {FLASH_HEAD_DIMS} and lengths % {block} == 0, "
                          f"got dh {D}, Lq {Lq}, Lk {Lk}")
     return B, Lq, Lk, H, D
 
@@ -152,8 +160,6 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stats: bool
     """K3 (f32 or bf16, by q's dtype): o, or (o, lse) with ``stats``."""
     name = _kernel_name("flash_attn_stats" if stats else "flash_attn", q.dtype)
     B, Lq, Lk, H, D = _check(q, k, v, name)
-    if q.dtype == _BF16 and (Lq % BF16_FWD_BLOCK or Lk % BF16_FWD_BLOCK):
-        raise ValueError(f"{name} takes lengths % {BF16_FWD_BLOCK} == 0, got Lq {Lq}, Lk {Lk}")
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device) if stats else None
     kernels.launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -208,8 +214,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        # di = rowsum(o ∘ do) in f32, as flash_vjp.py computes it outside the kernels.
-        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        di = attention_di(o, do)
         if kernels.use_kernel(q):
             return _bwd_kernels(q, k, v, lse, do, di)
         return _plain_bwd(q, k, v, lse, do, di)

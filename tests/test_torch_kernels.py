@@ -330,13 +330,19 @@ def test_bf16_flash_kernels_match_plain(cuda, lq, lk, dh, spread):
 
 def test_bf16_forward_is_bound_to_its_own_source():
     """The bf16 K3, without and with statistics, is the TMA / wgmma kernel of
-    flash_attn_bf16_fwd.cu; the bf16 K4 and K5 stay in flash_attn_bf16.cu."""
+    flash_attn_bf16_fwd.cu; the bf16 K4 and K5 are those of
+    flash_attn_bf16_bwd.cu. The mma.sync source flash_attn_bf16.cu is gone."""
     for name in ("flash_attn_bf16", "flash_attn_stats_bf16"):
         assert kernels._ENTRY[name][:2] == ("flash_attn_bf16_fwd", "flash_attn_bf16_fwd_launch")
-    for name in ("flash_attn_bwd_dkv_bf16", "flash_attn_bwd_dq_bf16"):
-        assert kernels._ENTRY[name][0] == "flash_attn_bf16"
-    assert "flash_attn_bf16_fwd" in kernels.SOURCES
-    assert (kernels.CSRC / "flash_attn_bf16_fwd.cu").is_file()
+    assert kernels._ENTRY["flash_attn_bwd_dkv_bf16"][:2] == (
+        "flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dkv_launch")
+    assert kernels._ENTRY["flash_attn_bwd_dq_bf16"][:2] == (
+        "flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dq_launch")
+    assert {"flash_attn_bf16_fwd", "flash_attn_bf16_bwd"} <= set(kernels.SOURCES)
+    assert "flash_attn_bf16" not in kernels.SOURCES
+    for src in ("flash_attn_bf16_fwd", "flash_attn_bf16_bwd"):
+        assert (kernels.CSRC / f"{src}.cu").is_file()
+    assert not (kernels.CSRC / "flash_attn_bf16.cu").exists()
 
 
 @pytest.mark.cuda
@@ -350,6 +356,20 @@ def test_bf16_forward_refuses_lengths_off_its_tiles(cuda):
             flash._flash_kernel(q, k, v, stats=stats)
         with pytest.raises(ValueError, match="% 128"):
             flash._flash_kernel(k, q, q, stats=stats)  # Lq 512, Lk 576
+    assert kernels.launches == before
+
+
+@pytest.mark.cuda
+def test_bf16_backward_refuses_lengths_off_its_tiles(cuda):
+    """The bf16 K5 and K4 take Lq and Lk in multiples of 128, as the bf16 K3
+    does: 576 (a multiple of the f32 kernels' 64) against 512, both ways, is
+    refused by the wrapper before any launch."""
+    before = dict(kernels.launches)
+    for lq, lk in ((576, 512), (512, 576)):
+        q, k, v, do = _qkv(cuda, lq, lk, 64, dtype=torch.bfloat16)
+        lse = torch.zeros(2, 8, lq, device="cuda")
+        with pytest.raises(ValueError, match="% 128"):
+            flash._bwd_kernels(q, k, v, lse, do, torch.zeros_like(lse))
     assert kernels.launches == before
 
 
