@@ -12,7 +12,11 @@ Phases (any failure exits non-zero):
    training attention site K3 with its row statistics against the plain
    forward, K5 (dQ) and K4 (dK, dV) through the flash Function against
    autograd through the naive math and against their own second run (bit
-   for bit: no atomics);
+   for bit: no atomics), also with q x 8 (a large spread of scores, held
+   against the naive autograd in f64, whose f32 run is itself near the
+   bound there); the
+   split pass (``split_bf16x3``, the three bf16 planes of q, k, v and dO that
+   the f32 K4 and K5 take) against its plain version, bit for bit;
 3. the same for the bf16 kernels at every attention site and at dh 256: bf16
    K3 without and with statistics (``flash_attn_bf16_fwd.cu``), K5 and K4
    (``flash_attn_bf16_bwd.cu``; all TMA / wgmma kernels) against their bf16
@@ -22,7 +26,8 @@ Phases (any failure exits non-zero):
    cases (q × 8: the running max moves between key tiles); ``-Xptxas -v`` of
    both bf16 sources (no spill in any K3, K4 or K5 instance at dh 64, 96,
    128; the dynamic shared memory from each launcher's export) and their
-   SASS (``HGMMA``, ``UTMALDG``);
+   SASS (``HGMMA``, ``UTMALDG``); the same reports for the f32 K4 / K5 on
+   the split planes (``flash_attn_split_bwd.cu``);
 4. evaluation main path: ``eval_pcn`` on a full-width PCN SVDFormer (random
    weights from a seeded generator) over 3 synthetic batches of 8, with the
    launch counters zeroed just before and read just after; every kernel of
@@ -32,7 +37,8 @@ Phases (any failure exits non-zero):
 5. train main path, f32: two full-width models from ``build_model`` (seed 0)
    take one ``make_train_step`` step on one synthetic batch of 12 (3 pad
    rows), one with the kernels (counters zeroed before, read after: K1, K2,
-   K3 with statistics, K4 and K5 must all have launched) and one under
+   K3 with statistics, K4 and K5 must all have launched, the flash kernels
+   12 times each and the split 48, four a backward) and one under
    ``reference_ops()``, both with PyTorch's deterministic algorithms; loss
    and parts must agree within 1e-4 relative and Adam's first moment per
    parameter within 1e-3 relative (L2; parameters whose exact gradient is 0
@@ -61,8 +67,10 @@ Phases (any failure exits non-zero):
    backend; the bf16 K3, K4 and K5 with their TFLOP/s, the floor their
    exponentials set, their device times from CUDA graphs beside SDPA's, and
    for the backward the di pass's, so that di + K5 + K4 stands beside SDPA's
-   one flash backward call); a profiler breakdown of both train steps by
-   kernel family.
+   one flash backward call; the f32 K4 and K5 with their shares of the
+   split-rate bound and of the FP32 pipes', and di + split + K5 + K4 beside
+   SDPA's memory-efficient backward in device time); a profiler breakdown of
+   both train steps by kernel family.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -142,13 +150,18 @@ FPS_SITES = [(2048, 512), (512, 128), (2048, 512), (2304, 512)]
 FPS_TRAIN_SITES = FPS_SITES + [(16384, 2048), (2048, 256)]
 EVAL_KERNELS = ("nn_distance", "fps", "flash_attn")
 TRAIN_KERNELS = ("nn_distance", "fps", "flash_attn_stats", "flash_attn_bwd_dkv",
-                 "flash_attn_bwd_dq")
+                 "flash_attn_bwd_dq", "split_bf16x3")
+# Flash launches of one f32 train step: 12 attention sites, each backward
+# splitting q, k, v and dO.
+F32_STEP_FLASH = {"flash_attn_stats": 12, "flash_attn_bwd_dq": 12, "flash_attn_bwd_dkv": 12,
+                  "split_bf16x3": 48}
 BF16_KERNELS = ("flash_attn_bf16", "flash_attn_stats_bf16", "flash_attn_bwd_dkv_bf16",
                 "flash_attn_bwd_dq_bf16")
 # Launches of one bf16-mode train step: every training attention site on the
 # bf16 kernels, none on the f32 ones; K1 and K2 as in f32.
 BF16_STEP_LAUNCHES = {"nn_distance": 8, "fps": 6, "flash_attn": 0, "flash_attn_stats": 0,
-                      "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0, "flash_attn_bf16": 0,
+                      "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0, "split_bf16x3": 0,
+                      "flash_attn_bf16": 0,
                       "flash_attn_stats_bf16": 12, "flash_attn_bwd_dkv_bf16": 12,
                       "flash_attn_bwd_dq_bf16": 12}
 # The synthetic PCN tree of the entry-point phase: 3 batches of 12 an epoch.
@@ -161,10 +174,13 @@ SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
                    "svdformer_pointsea_tpu/nn/flash_vjp.py:153"),
     "flash_attn_stats": ("svdformer_pointsea_tpu_torch/csrc/flash_attn.cu",
                          "svdformer_pointsea_tpu/nn/flash_vjp.py:160"),
-    "flash_attn_bwd_dkv": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bwd.cu",
+    "flash_attn_bwd_dkv": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_split_bwd.cu",
                            "svdformer_pointsea_tpu/nn/flash_vjp.py:171"),
-    "flash_attn_bwd_dq": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bwd.cu",
+    "flash_attn_bwd_dq": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_split_bwd.cu",
                           "svdformer_pointsea_tpu/nn/flash_vjp.py:49"),
+    # Part of the f32 K4 / K5 port: the backward (flash_vjp.py::_bwd) runs both.
+    "split_bf16x3": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_split_bwd.cu",
+                     "svdformer_pointsea_tpu/nn/flash_vjp.py:166"),
     "flash_attn_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_fwd.cu",
                         "svdformer_pointsea_tpu/nn/flash_vjp.py:153"),
     "flash_attn_stats_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_fwd.cu",
@@ -174,17 +190,23 @@ SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
     "flash_attn_bwd_dq_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_bwd.cu",
                                "svdformer_pointsea_tpu/nn/flash_vjp.py:49"),
 }
-# The TMA / wgmma sources: ptxas and SASS reports; per kernel, the C export
-# that returns the dynamic shared memory its launcher requests at a head dim.
-BF16_SOURCES = ("flash_attn_bf16_fwd", "flash_attn_bf16_bwd")
-SMEM_EXPORTS = {"wgmma_fwd_kernel": ("flash_attn_bf16_fwd", "flash_attn_bf16_fwd_smem"),
-                "bwd_dq_kernel": ("flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dq_smem"),
-                "bwd_dkv_kernel": ("flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dkv_smem")}
+# The TMA / wgmma sources: ptxas and SASS reports; per kernel, its label and
+# the C export that returns the dynamic shared memory its launcher requests
+# at a head dim.
+WGMMA_SOURCES = ("flash_attn_bf16_fwd", "flash_attn_bf16_bwd", "flash_attn_split_bwd")
+SMEM_EXPORTS = {
+    "wgmma_fwd_kernel": ("bf16", "flash_attn_bf16_fwd", "flash_attn_bf16_fwd_smem"),
+    "bwd_dq_kernel": ("bf16", "flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dq_smem"),
+    "bwd_dkv_kernel": ("bf16", "flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dkv_smem"),
+    "split_bwd_dq_kernel": ("f32 split", "flash_attn_split_bwd", "flash_attn_split_bwd_dq_smem"),
+    "split_bwd_dkv_kernel": ("f32 split", "flash_attn_split_bwd", "flash_attn_split_bwd_dkv_smem"),
+}
 # Device-kernel name patterns of the train step's profile, first match wins.
 PROFILE_FAMILIES = [
     ("K3 flash forward", r"flash_fwd_kernel"),
-    ("K4 flash dK/dV", r"flash_bwd_dkv_kernel"),
-    ("K5 flash dQ", r"flash_bwd_dq_kernel"),
+    ("K4 flash dK/dV (f32, split)", r"split_bwd_dkv_kernel"),
+    ("K5 flash dQ (f32, split)", r"split_bwd_dq_kernel"),
+    ("split pass (f32 backward)", r"split_bf16x3_kernel"),
     ("K3 bf16 flash forward", r"fwd_kernel"),  # the f32 names matched first
     ("K4 bf16 flash dK/dV", r"bwd_dkv_kernel"),
     ("K5 bf16 flash dQ", r"bwd_dq_kernel"),
@@ -249,7 +271,15 @@ def graph_ms(fn: Callable[[], object], reps: int = 10, replays: int = 5) -> floa
     return start.elapsed_time(end) / (reps * replays)
 
 
+# The f32 K4 and K5 run on the bf16 tensor cores, six products of split
+# parts for each product of the f32 function.
+SPLIT_FLOPS = BF16_FLOPS / 6
+SPLIT_KERNELS = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
 def peak_flops(name: str) -> float:
+    if name in SPLIT_KERNELS:
+        return SPLIT_FLOPS
     return BF16_FLOPS if name.endswith("_bf16") else F32_FLOPS
 
 
@@ -267,7 +297,9 @@ def attention_work(b: int, h: int, lq: int, lk: int, dh: int, kernel: str):
     """(operations, bytes) of one attention kernel call: 4 (K3), 6 (K5) or 8
     (K4) x B h Lq Lk dh flops; each operand read once, each output written
     once, at 4 bytes a value (f32) or 2 (the bf16 kernels' q, k, v, o, do, dq,
-    dk, dv; lse and di stay f32)."""
+    dk, dv; lse and di stay f32). The f32 K4 and K5 are counted on their f32
+    operands: the bytes of the split pass that makes their bf16 planes are
+    counted on its own row (``split_work``)."""
     base = kernel[:-len("_bf16")] if kernel.endswith("_bf16") else kernel
     elem = 2 if base != kernel else 4
     qd, kd, rows = b * h * lq * dh, b * h * lk * dh, b * h * lq
@@ -276,6 +308,12 @@ def attention_work(b: int, h: int, lq: int, lk: int, dh: int, kernel: str):
                   "flash_attn_bwd_dq": (3 * qd + 2 * kd, 2 * rows),   # q, do, k, v, lse, di -> dq
                   "flash_attn_bwd_dkv": (2 * qd + 4 * kd, 2 * rows)}[base]  # ... -> dk, dv
     return _ATTN_FLOPS[base] * b * h * lq * lk * dh, elem * mats + 4 * vecs
+
+
+def split_work(n: int):
+    """(operations, bytes) of one split of n f32 values: 4 subtractions and 3
+    roundings a value (the bound is the bytes), 4 read and 6 written."""
+    return 7 * n, 10 * n
 
 
 @dataclass
@@ -397,47 +435,73 @@ def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
             fail(f"flash_attn ({lq}, {lk}, {dh}) differs by {e}")
         err["flash_attn"] = max(err["flash_attn"], e)
 
-    # Training: K3 with statistics, then K5 / K4 through the Function's backward.
-    for name in ("flash_attn_stats", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+    # Training: K3 with statistics, then the split and K5 / K4 through the
+    # Function's backward; each site also with q x SPREAD, where the backward
+    # is held to the same bound (K3's O and lse are printed there, not gated)
+    # against the naive autograd in f64: with the large spread the naive f32
+    # math itself uses much of the bound at |dk| ~ 10, so it is no yardstick
+    # there; its own excess over the f64 truth is printed beside the kernels'.
+    for name in ("flash_attn_stats", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "split_bf16x3"):
         err[name] = 0.0
-    for lq, lk, dh in sorted(set(FLASH_SITES)):
-        q, k, v, do = (torch.randn(4, n_, 8, dh, device=dev, generator=g)
-                       for n_ in (lq, lk, lk, lq))
-        o, lse = flash._flash_kernel(q, k, v, stats=True)
-        torch.cuda.synchronize()
-        o_p, lse_p = flash.attention_fwd_plain(q, k, v)
-        e3 = max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
-        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        got = torch.autograd.grad(flash.flash_attention_train(*ins), ins, do)
-        again = torch.autograd.grad(flash.flash_attention_train(*ins), ins, do)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            fail(f"K4 / K5 at ({lq}, {lk}, {dh}) gave two answers for one input")
-        ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        want = torch.autograd.grad(flash.naive_attention(*ref_ins), ref_ins, do)
-        line = f"K3+stats/K5/K4 Lq {lq} Lk {lk} dh {dh}: O, lse max|Δ| {e3:.3e}"
-        if not e3 <= FLASH_TOL:
-            fail(f"flash_attn_stats ({lq}, {lk}, {dh}) differs by {e3}")
-        err["flash_attn_stats"] = max(err["flash_attn_stats"], e3)
-        for gname, kname, a, b in (("dq", "flash_attn_bwd_dq", got[0], want[0]),
-                                   ("dk", "flash_attn_bwd_dkv", got[1], want[1]),
-                                   ("dv", "flash_attn_bwd_dkv", got[2], want[2])):
-            e = (a - b).abs().max().item()
-            excess = ((a - b).abs() - FLASH_BWD_TOL * b.abs()).max().item()
-            line += f"; {gname} max|Δ| {e:.3e}"
-            if not excess <= FLASH_BWD_TOL:
-                fail(f"{gname} at ({lq}, {lk}, {dh}) outside atol/rtol {FLASH_BWD_TOL}: {excess}")
-            err[kname] = max(err[kname], e)
-        print(line)
-        del ins, ref_ins, got, again, want
+    for spread in (1.0, SPREAD):
+        for lq, lk, dh in sorted(set(FLASH_SITES)):
+            q, k, v, do = (torch.randn(4, n_, 8, dh, device=dev, generator=g)
+                           for n_ in (lq, lk, lk, lq))
+            q = q * spread
+            for x in (q, do):
+                planes = flash.split_bf16x3(x)
+                torch.cuda.synchronize()
+                bad = int((planes.view(torch.int16)
+                           != flash.split_bf16x3_plain(x).view(torch.int16)).sum().item())
+                if bad:
+                    fail(f"split_bf16x3 at ({lq}, {lk}, {dh}) x {spread:g}: {bad} parts differ")
+            o, lse = flash._flash_kernel(q, k, v, stats=True)
+            torch.cuda.synchronize()
+            o_p, lse_p = flash.attention_fwd_plain(q, k, v)
+            e3 = max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
+            ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            got = torch.autograd.grad(flash.flash_attention_train(*ins), ins, do)
+            again = torch.autograd.grad(flash.flash_attention_train(*ins), ins, do)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"K4 / K5 at ({lq}, {lk}, {dh}) x {spread:g} gave two answers for one input")
+            ref_dtype = torch.float32 if spread == 1.0 else torch.float64
+            ref_ins = [x.to(ref_dtype).requires_grad_(True) for x in (q, k, v)]
+            want = torch.autograd.grad(flash.naive_attention(*ref_ins), ref_ins, do.to(ref_dtype))
+            label = "" if spread == 1.0 else f" (q x {spread:g}, naive in f64)"
+            line = (f"K3+stats/K5/K4{label} Lq {lq} Lk {lk} dh {dh}: O, lse max|Δ| {e3:.3e}; split "
+                    "bit-equal")
+            if spread != 1.0:
+                f32_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                f32_naive = torch.autograd.grad(flash.naive_attention(*f32_ins), f32_ins, do)
+                line += "; f32 naive's own excess " + ", ".join(
+                    f"{((a - b).abs() - FLASH_BWD_TOL * b.abs()).max().item():.2e}"
+                    for a, b in zip(f32_naive, want))
+                del f32_ins, f32_naive
+            if spread == 1.0:
+                if not e3 <= FLASH_TOL:
+                    fail(f"flash_attn_stats ({lq}, {lk}, {dh}) differs by {e3}")
+                err["flash_attn_stats"] = max(err["flash_attn_stats"], e3)
+            for gname, kname, a, b in (("dq", "flash_attn_bwd_dq", got[0], want[0]),
+                                       ("dk", "flash_attn_bwd_dkv", got[1], want[1]),
+                                       ("dv", "flash_attn_bwd_dkv", got[2], want[2])):
+                e = (a - b).abs().max().item()
+                excess = ((a - b).abs() - FLASH_BWD_TOL * b.abs()).max().item()
+                line += f"; {gname} max|Δ| {e:.3e} (excess {excess:.2e})"
+                if not excess <= FLASH_BWD_TOL:
+                    fail(f"{gname} at ({lq}, {lk}, {dh}) x {spread:g} outside atol/rtol "
+                         f"{FLASH_BWD_TOL}: {excess}")
+                err[kname] = max(err[kname], e)
+            print(line)
+            del ins, ref_ins, got, again, want
     return err
 
 
 def ptxas_report_start(kernels, tmp: str):
-    """Start ``nvcc -Xptxas -v`` on the bf16 flash sources (compile only) in
+    """Start ``nvcc -Xptxas -v`` on the wgmma flash sources (compile only) in
     the background; ``ptxas_report_print`` reads them."""
     procs = {}
-    for src in BF16_SOURCES:
+    for src in WGMMA_SOURCES:
         cmd = [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, f"{src}.o"),
                str(kernels.CSRC / f"{src}.cu")]
@@ -447,19 +511,21 @@ def ptxas_report_start(kernels, tmp: str):
 
 
 def ptxas_report_print(kernels, procs) -> None:
-    """Registers and spills per bf16 kernel instance (K3, K5, K4), and the
-    dynamic shared memory its launcher requests, read from the built
-    library's export (``SMEM_EXPORTS``). Fails if an instance spills at dh
-    64, 96 or 128; prints ptxas's performance warnings."""
+    """Registers and spills per wgmma kernel instance (the bf16 K3, K5, K4;
+    the f32 K5, K4 on split planes), and the dynamic shared memory its
+    launcher requests, read from the built library's export
+    (``SMEM_EXPORTS``). Fails if an instance spills at dh 64, 96 or 128;
+    prints ptxas's performance warnings."""
     import ctypes
 
+    pattern = "|".join(sorted(SMEM_EXPORTS, key=len, reverse=True))  # the longest name first
     for src, proc in procs.items():
         out, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
             fail(f"nvcc -Xptxas -v failed for {src}.cu:\n{out}")
         name = None
         for line in out.splitlines():
-            m = re.search(r"(wgmma_fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)ILi(\d+)E", line)
+            m = re.search(rf"({pattern})ILi(\d+)E", line)
             if "C75" in line:  # e.g. wgmma serialised, setmaxnreg ignored
                 print(f"ptxas warning ({src}.cu): " + re.sub(r"'_Z\S+'", "", line.strip()))
             if m and "Compiling entry" in line:
@@ -470,18 +536,18 @@ def ptxas_report_print(kernels, procs) -> None:
             elif name and "Used" in line and "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 kind, dh = name
-                lib, export = SMEM_EXPORTS[kind]
+                label, lib, export = SMEM_EXPORTS[kind]
                 smem_fn = getattr(kernels._libs[lib], export)
                 smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
                 if spilled and dh != 256:
-                    fail(f"the bf16 {kind} spills at dh {dh}: {spills}")
-                print(f"ptxas bf16 {kind} dh {dh}: {regs} registers, {spills}; dynamic shared "
+                    fail(f"the {label} {kind} spills at dh {dh}: {spills}")
+                print(f"ptxas {label} {kind} dh {dh}: {regs} registers, {spills}; dynamic shared "
                       f"memory {smem_fn(dh) / 1000:.1f} KB")
                 name = None
 
 
 def sass_report(kernels) -> None:
-    """Counts of the Hopper instructions in the SASS of each bf16 library:
+    """Counts of the Hopper instructions in the SASS of each wgmma library:
     HGMMA (wgmma), UTMALDG / UTMASTG (TMA load / store), MUFU.EX2; fails if
     either library lacks the first two. Prints "not available" without
     cuobjdump."""
@@ -489,7 +555,7 @@ def sass_report(kernels) -> None:
 
     tool = Path(kernels._nvcc()).parent / "cuobjdump"
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
-    for src in BF16_SOURCES:
+    for src in WGMMA_SOURCES:
         if tool is None:
             print(f"SASS of {src}.cu: not available (no cuobjdump)")
             continue
@@ -687,6 +753,8 @@ def train_phase(torch, kernels, cfg, batch):
     for name in TRAIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the train step")
+    if any(launches[name] != n for name, n in F32_STEP_FLASH.items()):
+        fail(f"train step flash launches {launches}, expected {F32_STEP_FLASH}")
     model_r, state_r, step_r = runs["plain"]
     with kernels.reference_ops():
         state_r, m_r = step_r(state_r, partial, gt, weights, lr)
@@ -913,6 +981,17 @@ def sdpa_flash_backward(torch, qt, kt, vt, dot) -> Callable[[], object]:
                        offset)
 
 
+def sdpa_efficient_backward(torch, qt, kt, vt, dot) -> Callable[[], object]:
+    """One call of SDPA's memory-efficient backward (the aten op under
+    ``scaled_dot_product_attention``'s memory-efficient backend, f32) on (B,
+    h, L, dh) views, from its forward's outputs computed here once: dq, dk,
+    dv, and its own rowsum(O ∘ dO) inside."""
+    o, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, None, True)
+    bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+    return lambda: bwd(dot, qt, kt, vt, None, o, lse, seed, offset, 0.0, [True, True, True, False])
+
+
 def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     """Kernel, plain and library time (ms) and bound summed over the calls one
     training batch of 12 makes (K1, K2, K3 with statistics, K4, K5, f32 and
@@ -926,7 +1005,10 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     SDPA's (``graph_ms``: where the host is slow, a call at the 512-token
     sites takes as long on the host as on the card); K4 and K5 beside SDPA's
     one flash backward call, whose device time includes its own di, so the
-    di pass's device time is summed too (on the K5 row)."""
+    di pass's device time is summed too (on the K5 row). The f32 K4 and K5
+    likewise, beside SDPA's memory-efficient backward, with the split pass
+    that makes their planes (its own row: bytes-bound, no library call), and
+    each with its bound at the split rate and at the FP32 pipes' peak."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -937,6 +1019,10 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     for name in BF16_KERNELS:
         out[name].update(flop=0.0, exp_floor_ms=0.0, device_ms=0.0, library_device_ms=0.0)
     out["flash_attn_bwd_dq_bf16"]["di_device_ms"] = 0.0
+    for name in SPLIT_KERNELS:
+        out[name].update(flop=0.0, fp32_ms=0.0, device_ms=0.0, library_device_ms=0.0)
+    out["flash_attn_bwd_dq"]["di_device_ms"] = 0.0
+    out["split_bf16x3"]["device_ms"] = 0.0
 
     def exp_floor_ms(b, lq, lk):
         return 1e3 * b * 8 * lq * lk / (EXP_PER_CLOCK * clock_mhz * 1e6)
@@ -958,29 +1044,38 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
                 f"{floor:.4f} ms; device (CUDA graph) {dev:.4f} ms, {flop / dev / 1e9:.1f} "
                 f"TFLOP/s, sdpa {lib_dev:.4f} ms, {dev / lib_dev:.3f} x sdpa]")
 
-    def bwd_bf16(b, lq, lk, dh, k_ms, run, run_di, run_sdpa):
-        """Adds the bf16 K5's and K4's flops, exponential floors and device
-        times (``k_ms``, ``run``: per kernel name), the di pass's and SDPA's
-        flash backward's; returns the text for the timing line."""
+    def bwd_device(sfx, b, lq, lk, dh, k_ms, run, run_di, run_sdpa, run_split=None):
+        """Adds K5's and K4's flops and device times (``k_ms``, ``run``: per
+        kernel name), their exponential floors (bf16) or FP32-pipe bounds
+        (f32), the di pass's, the split's (f32) and SDPA's backward's device
+        times; returns the text for the timing line."""
         floor = exp_floor_ms(b, lq, lk)
         dev = {name: graph_ms(fn) for name, fn in run.items()}
         dev_di = graph_ms(run_di)
+        dev_split = graph_ms(run_split) if run_split else 0.0
         with torch.no_grad():
             lib_dev = graph_ms(run_sdpa)
         text = []
-        for name, label in (("flash_attn_bwd_dq_bf16", "K5"), ("flash_attn_bwd_dkv_bf16", "K4")):
-            r = out[name]
-            flop = _ATTN_FLOPS[name[:-len("_bf16")]] * b * 8 * lq * lk * dh
+        for base, label in (("flash_attn_bwd_dq", "K5"), ("flash_attn_bwd_dkv", "K4")):
+            r = out[base + sfx]
+            flop = _ATTN_FLOPS[base] * b * 8 * lq * lk * dh
             r["flop"] += flop
-            r["exp_floor_ms"] += floor
-            r["device_ms"] += dev[name]
+            if sfx:
+                r["exp_floor_ms"] += floor
+            else:
+                r["fp32_ms"] += 1e3 * flop / F32_FLOPS
+            r["device_ms"] += dev[base + sfx]
             r["library_device_ms"] += lib_dev
-            text.append(f"{label} {flop / k_ms[name] / 1e9:.1f} TFLOP/s, device {dev[name]:.4f} ms "
-                        f"({flop / dev[name] / 1e9:.1f} TFLOP/s)")
-        out["flash_attn_bwd_dq_bf16"]["di_device_ms"] += dev_di
-        total = dev_di + sum(dev.values())
-        return (" [" + "; ".join(text) + f"; exp floor {floor:.4f} ms each; device di pass "
-                f"{dev_di:.4f} ms, di + K5 + K4 {total:.4f} ms, sdpa bwd {lib_dev:.4f} ms, "
+            text.append(f"{label} {flop / k_ms[base + sfx] / 1e9:.1f} TFLOP/s, device "
+                        f"{dev[base + sfx]:.4f} ms ({flop / dev[base + sfx] / 1e9:.1f} TFLOP/s)")
+        out["flash_attn_bwd_dq" + sfx]["di_device_ms"] += dev_di
+        total = dev_di + dev_split + sum(dev.values())
+        if run_split:
+            out["split_bf16x3"]["device_ms"] += dev_split
+            passes = f"device di pass {dev_di:.4f} ms, split {dev_split:.4f} ms, di + split + K5 + K4"
+        else:
+            passes = f"exp floor {floor:.4f} ms each; device di pass {dev_di:.4f} ms, di + K5 + K4"
+        return (" [" + "; ".join(text) + f"; {passes} {total:.4f} ms, sdpa bwd {lib_dev:.4f} ms, "
                 f"{total / lib_dev:.3f} x sdpa]")
 
     def add(name, k_ms, p_ms, ops, nbytes, lib_ms=None):
@@ -1055,7 +1150,12 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
             lib_f = cuda_ms(lambda: sdpa(qt, kt, vt), 5)
             o, lse = flash._flash_kernel(q, k, v, stats=True)
             di = flash.attention_di(o, do)
-            ptrs = [x.data_ptr() for x in (q, k, v, lse, do, di)]
+            ops_in = (q, k, v, do)
+            if not sfx:  # the f32 K4 and K5 take the split planes; the split is timed on its own
+                split_ms, split_plain = both(lambda: [flash.split_bf16x3(x) for x in (q, k, v, do)], 5)
+                add("split_bf16x3", split_ms, split_plain, *split_work(sum(x.numel() for x in ops_in)))
+                ops_in = [flash.split_bf16x3(x) for x in ops_in]
+            ptrs = [x.data_ptr() for x in (*ops_in[:3], lse, ops_in[3], di)]
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
             shape = (B_TRAIN, 8, lq, lk, dh, 1.0 / math.sqrt(dh))
             run = {"flash_attn_bwd_dq" + sfx: lambda: kernels.launch(
@@ -1075,14 +1175,20 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
                                           ("flash_attn_bwd_dq" + sfx, k5, p5, lib_b),
                                           ("flash_attn_bwd_dkv" + sfx, k4, p4, lib_b)):
                 add(name, k_ms, p_ms, *attention_work(B_TRAIN, 8, lq, lk, dh, name), lib)
-            extra, extra_bwd = "", ""
+            extra = ""
+            detached = [x.detach() for x in (qt, kt, vt)]
             if sfx:
-                detached = [x.detach() for x in (qt, kt, vt)]
                 extra = k3_bf16("flash_attn_stats_bf16", B_TRAIN, lq, lk, dh, k3, lib_f,
                                 lambda: sdpa(*detached), q, k, v, True)
-                extra_bwd = bwd_bf16(B_TRAIN, lq, lk, dh, bwd_ms, run,
-                                     lambda: flash.attention_di(o, do),
-                                     sdpa_flash_backward(torch, *detached, dot))
+                extra_bwd = bwd_device(sfx, B_TRAIN, lq, lk, dh, bwd_ms, run,
+                                       lambda: flash.attention_di(o, do),
+                                       sdpa_flash_backward(torch, *detached, dot))
+            else:
+                extra_bwd = bwd_device(sfx, B_TRAIN, lq, lk, dh, bwd_ms, run,
+                                       lambda: flash.attention_di(o, do),
+                                       sdpa_efficient_backward(torch, *detached, dot),
+                                       lambda: [flash.split_bf16x3(x) for x in (q, k, v, do)])
+                extra_bwd += f"; split {split_ms:.4f} / plain {split_plain:.4f} ms"
             print(f"time{sfx} B{B_TRAIN} ({lq}, {lk}, {dh}): K3+stats {k3:.4f} / plain {p3:.4f} "
                   f"/ sdpa fwd {lib_f:.4f} ms{extra}; K5 {k5:.4f} / plain {p5:.4f} ms; K4 "
                   f"{k4:.4f} / plain {p4:.4f} ms; sdpa bwd (dq, dk, dv) {lib_b:.4f} ms{extra_bwd}")
@@ -1100,6 +1206,27 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
               f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of the bound), {lib} "
               f"{r['library_device_ms']:.4f} ms, ratio "
               f"{r['device_ms'] / r['library_device_ms']:.3f}")
+    for name in SPLIT_KERNELS:
+        r = out[name]
+        print(f"time {name} (f32, split) per training batch of {B_TRAIN}: {r['ms']:.4f} ms "
+              f"({r['flop'] / r['ms'] / 1e9:.1f} TFLOP/s, {100 * r['bound_ms'] / r['ms']:.1f} % of "
+              f"the split-rate bound {r['bound_ms']:.4f} ms at {SPLIT_FLOPS / 1e12:.1f} TFLOP/s; FP32 "
+              f"pipes' bound {r['fp32_ms']:.4f} ms, {100 * r['fp32_ms'] / r['ms']:.1f} %); sdpa bwd "
+              f"{r['library_ms']:.4f} ms, ratio {r['ms'] / r['library_ms']:.3f}; device (CUDA "
+              f"graph) {r['device_ms']:.4f} ms ({r['flop'] / r['device_ms'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of the split-rate bound, "
+              f"{100 * r['fp32_ms'] / r['device_ms']:.1f} % of the FP32 pipes'), sdpa bwd "
+              f"{r['library_device_ms']:.4f} ms")
+    r = out["split_bf16x3"]
+    print(f"time split_bf16x3 per training batch of {B_TRAIN}: {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes); device (CUDA graph) "
+          f"{r['device_ms']:.4f} ms, {100 * r['bound_ms'] / r['device_ms']:.1f} % of the bound")
+    r5, r4 = out["flash_attn_bwd_dq"], out["flash_attn_bwd_dkv"]
+    total = r5["di_device_ms"] + r["device_ms"] + r5["device_ms"] + r4["device_ms"]
+    print(f"time f32 backward per training batch of {B_TRAIN}, device (CUDA graph): di + split + K5 "
+          f"+ K4 = {r5['di_device_ms']:.4f} + {r['device_ms']:.4f} + {r5['device_ms']:.4f} + "
+          f"{r4['device_ms']:.4f} = {total:.4f} ms; sdpa memory-efficient backward "
+          f"{r5['library_device_ms']:.4f} ms; ratio {total / r5['library_device_ms']:.3f}")
     r5, r4 = out["flash_attn_bwd_dq_bf16"], out["flash_attn_bwd_dkv_bf16"]
     total = r5["di_device_ms"] + r5["device_ms"] + r4["device_ms"]
     print(f"time bf16 backward per training batch of {B_TRAIN}, device (CUDA graph): di pass "
@@ -1289,9 +1416,11 @@ def main() -> int:
                     and "_stats" not in name and "_bwd" not in name
                     else f"training batch of {B_TRAIN}"),
         })
-        if "device_ms" in t:  # the bf16 K3: its and SDPA's device times (CUDA graph)
+        if "library_device_ms" in t:  # its and SDPA's device times (CUDA graph)
             report["kernels"][-1].update({key: round(t[key], 4)
                                           for key in ("device_ms", "library_device_ms")})
+        elif "device_ms" in t:  # the split pass: no library call
+            report["kernels"][-1]["device_ms"] = round(t["device_ms"], 4)
     for row in report["kernels"]:
         if not all(math.isfinite(row[k]) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")):
             fail(f"non-finite measurement in {row}")

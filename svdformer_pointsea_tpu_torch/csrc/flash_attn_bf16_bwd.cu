@@ -100,42 +100,6 @@ struct DkvCfg {
   static_assert(kSmem <= kMaxSmem, "shared memory per block");
 };
 
-// dp (accumulator layout: elements 4i, 4i+1 of row g, 4i+2, 4i+3 of row
-// g+8) becomes dS = (dP - di) P scale in f32, P = 2^(s scale log2 e - lse
-// log2 e) from the raw scores s, with neg_lse2 = -lse log2 e and di per row.
-template <int N>
-__device__ __forceinline__ void ds_by_rows(const float (&s)[N], float (&dp)[N],
-                                           const float (&neg_lse2)[2], const float (&di)[2],
-                                           float scale_log2, float scale) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int r = (i >> 1) & 1;
-    const float p = ex2(fmaf(s[i], scale_log2, neg_lse2[r]));
-    dp[i] = (dp[i] - di[r]) * p * scale;
-  }
-}
-
-// The same for S^T and dP^T, whose columns are queries (columns 8c + 2 quad
-// and + 1 hold elements 4c, 4c+2 and 4c+1, 4c+3): lse and di come from the
-// stage's slices in shared memory. s becomes P^T and dp dS^T, both f32.
-template <int N>
-__device__ __forceinline__ void ds_by_cols(float (&s)[N], float (&dp)[N], const float* lse,
-                                           const float* di, int quad, float scale_log2,
-                                           float scale) {
-#pragma unroll
-  for (int c = 0; c < N / 4; ++c) {
-    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * c + 2 * quad);
-    const float2 d = *reinterpret_cast<const float2*>(di + 8 * c + 2 * quad);
-    const float neg_lse2[2] = {-l.x * kLog2e, -l.y * kLog2e}, di_c[2] = {d.x, d.y};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * c + e, col = e & 1;
-      s[i] = ex2(fmaf(s[i], scale_log2, neg_lse2[col]));
-      dp[i] = (dp[i] - di_c[col]) * s[i] * scale;
-    }
-  }
-}
-
 // A warpgroup's 64 x W f32 accumulator as bf16 into rows g and g + 8 of a
 // (.., H, D) tensor: `out` points at row g, column 2 quad of the block of
 // columns, rows are `rs` elements apart.

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the bf16 flash kernels
-// (flash_attn_bf16_fwd.cu: K3; flash_attn_bf16_bwd.cu: K4 and K5): mbarrier,
-// TMA and bulk copies, wgmma and its shared-memory descriptors over tiles of
-// swizzle atoms, and the 4-D tensor maps over the port's channels-last
-// (B, L, H, D) layout. Everything has internal linkage: each source that
+// Hopper (sm_90a) building blocks shared by the flash kernels on the tensor
+// cores (flash_attn_bf16_fwd.cu: the bf16 K3; flash_attn_bf16_bwd.cu: the
+// bf16 K4 and K5; flash_attn_split_bwd.cu: the f32 K4 and K5 on split bf16
+// planes): mbarrier, TMA and bulk copies, wgmma and its shared-memory
+// descriptors over tiles of swizzle atoms, the backward's dS from the scores,
+// and the 4-D tensor maps over the port's channels-last (B, L, H, D) layout. Everything has internal linkage: each source that
 // includes it is built into a library of its own.
 //
 // Tiles in shared memory: a tile of R rows and D bf16 columns is stored as
@@ -146,6 +147,16 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 }
 
 // --------------------------------------------------------- wgmma wrappers --
+// d (m64n16, f32) {=, +=} A (64 x 16, smem desc) * B (16 x 16, smem desc), both K-major.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (m64n32, f32) {=, +=} A (64 x 16, smem desc) * B (16 x 32, smem desc), both K-major.
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
@@ -276,7 +287,8 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  if constexpr (N == 32) wgmma_ss_n32(d, a, b, acc);
+  if constexpr (N == 16) wgmma_ss_n16(d, a, b, acc);
+  else if constexpr (N == 32) wgmma_ss_n32(d, a, b, acc);
   else if constexpr (N == 64) wgmma_ss_n64(d, a, b, acc);
   else wgmma_ss_n128(d, a, b, acc);
 }
@@ -310,17 +322,19 @@ __device__ __forceinline__ uint32_t swizzle(uint32_t row, uint32_t byte) {
   return off ^ (((off >> 7) & mask) << 4);
 }
 
-// acc (64 x N, f32) = A B^T, contracted over D, both operands K-major in
-// shared memory: A the 64 rows from `a` on (atom 0) of a tile of ARows rows,
-// B a tile of N rows at `b`. Started, not fenced or committed.
+// acc (64 x N, f32) = A B^T (or += with `zero` false), contracted over D,
+// both operands K-major in shared memory: A the 64 rows from `a` on (atom 0)
+// of a tile of ARows rows, B a tile of N rows at `b`. Started, not fenced or
+// committed.
 template <int D, int N, int ARows>
-__device__ __forceinline__ void mma_ss(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+__device__ __forceinline__ void mma_ss(float (&acc)[N / 2], uint32_t a, uint32_t b,
+                                       bool zero = true) {
   using A = Atom<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t atom = kk * 16 / A::kCols, col_bytes = (kk * 16 % A::kCols) * 2;
     wgmma_ss<N>(acc, make_desc<D>(a + atom * ARows * A::kRowBytes + col_bytes, 16),
-                make_desc<D>(b + atom * N * A::kRowBytes + col_bytes, 16), kk > 0);
+                make_desc<D>(b + atom * N * A::kRowBytes + col_bytes, 16), kk > 0 || !zero);
   }
 }
 
@@ -363,6 +377,42 @@ __device__ __forceinline__ void stage_rows(uint8_t* tile, const float (&acc)[D /
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<uint32_t*>(tile + atom * ARows * A::kRowBytes + swizzle<D>(g + 8 * r, byte)) =
           pack_bf16(acc[4 * c + 2 * r] * mul[r], acc[4 * c + 2 * r + 1] * mul[r]);
+  }
+}
+
+// dp (accumulator layout: elements 4i, 4i+1 of row g, 4i+2, 4i+3 of row
+// g+8) becomes dS = (dP - di) P scale in f32, P = 2^(s scale log2 e - lse
+// log2 e) from the raw scores s, with neg_lse2 = -lse log2 e and di per row.
+template <int N>
+__device__ __forceinline__ void ds_by_rows(const float (&s)[N], float (&dp)[N],
+                                           const float (&neg_lse2)[2], const float (&di)[2],
+                                           float scale_log2, float scale) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    const float p = ex2(fmaf(s[i], scale_log2, neg_lse2[r]));
+    dp[i] = (dp[i] - di[r]) * p * scale;
+  }
+}
+
+// The same for S^T and dP^T, whose columns are queries (columns 8c + 2 quad
+// and + 1 hold elements 4c, 4c+2 and 4c+1, 4c+3): lse and di come from the
+// stage's slices in shared memory. s becomes P^T and dp dS^T, both f32.
+template <int N>
+__device__ __forceinline__ void ds_by_cols(float (&s)[N], float (&dp)[N], const float* lse,
+                                           const float* di, int quad, float scale_log2,
+                                           float scale) {
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * c + 2 * quad);
+    const float2 d = *reinterpret_cast<const float2*>(di + 8 * c + 2 * quad);
+    const float neg_lse2[2] = {-l.x * kLog2e, -l.y * kLog2e}, di_c[2] = {d.x, d.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * c + e, col = e & 1;
+      s[i] = ex2(fmaf(s[i], scale_log2, neg_lse2[col]));
+      dp[i] = (dp[i] - di_c[col]) * s[i] * scale;
+    }
   }
 }
 

@@ -3,12 +3,12 @@
 Each ``csrc/<source>.cu`` has plain C entry points and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
 library under ``build/torch_kernels/`` of the checkout, then loaded with
-``ctypes``. One source may hold several kernels (``flash_attn_bwd.cu``: K4 and
-K5; ``flash_attn_bf16_bwd.cu``: the bf16 K4 and K5) or serve two kernel names
-(``flash_attn.cu`` and ``flash_attn_bf16_fwd.cu``: K3 without and with its row
-statistics), each with its own launch counter. The bf16 sources include
-``csrc/sm90.cuh``; a library's name hashes its source, the headers and the
-flags. Nothing is compiled or loaded at import time, so the package imports on
+``ctypes``. One source may hold several kernels (``flash_attn_split_bwd.cu``:
+the f32 K4 and K5 and the split pass that feeds them; ``flash_attn_bf16_bwd.cu``:
+the bf16 K4 and K5) or serve two kernel names (``flash_attn.cu`` and
+``flash_attn_bf16_fwd.cu``: K3 without and with its row statistics), each with
+its own launch counter. The tensor-core sources include ``csrc/sm90.cuh``; a
+library's name hashes its source, the headers and the flags. Nothing is compiled or loaded at import time, so the package imports on
 a machine without a GPU or a CUDA toolkit.
 
 Every wrapper in ``ops/`` and ``nn/`` decides its path the same way
@@ -45,6 +45,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # kernel name -> (source csrc/<source>.cu, C entry point, argtypes). A source
 # may serve several names: the name is what the launch counters count.
 _ENTRY = {
@@ -55,10 +56,13 @@ _ENTRY = {
                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attn_stats": ("flash_attn", "flash_attn_fwd_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_attn_bwd_dkv": ("flash_attn_bwd", "flash_attn_bwd_dkv_launch",
+    # The f32 K4 and K5 on the bf16 tensor cores, on the three bf16 planes
+    # (hi, mid, lo) of q, k, v and dO that the split pass makes.
+    "flash_attn_bwd_dkv": ("flash_attn_split_bwd", "flash_attn_split_bwd_dkv_launch",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_attn_bwd_dq": ("flash_attn_bwd", "flash_attn_bwd_dq_launch",
+    "flash_attn_bwd_dq": ("flash_attn_split_bwd", "flash_attn_split_bwd_dq_launch",
                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "split_bf16x3": ("flash_attn_split_bwd", "split_bf16x3_launch", [_P, _P, _L, _P]),
     # The bf16 instances of K3 (without and with statistics), K4 and K5, on
     # TMA and wgmma (--precision bf16).
     "flash_attn_bf16": ("flash_attn_bf16_fwd", "flash_attn_bf16_fwd_launch",

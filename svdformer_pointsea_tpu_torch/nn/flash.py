@@ -9,7 +9,10 @@ term ``di`` are (B, h, Lq) f32.
 - :class:`FlashAttention`: the differentiable version for training. Its
   forward launches K3 with the row statistics (``lse``, the log-sum-exp of
   the scaled logits: upstream's ``m`` + log ``l``) and saves q, k, v, o and
-  lse; its backward launches K5 (dQ) and K4 (dK, dV).
+  lse; its backward launches K5 (dQ) and K4 (dK, dV). In f32 these run on
+  the bf16 tensor cores with f32 accuracy: :func:`split_bf16x3` first turns
+  each of q, k, v and dO into three bf16 planes (hi, mid, lo) whose sum is
+  the f32 value, and every product is the six products of their parts.
 
 q, k and v are all f32 or all bf16. bf16 inputs (``--precision bf16``) take
 the bf16 instances of the kernels, on the tensor cores, which compute what
@@ -20,9 +23,10 @@ bf16; ``lse`` and ``di`` stay f32.
 
 Each kernel has a plain PyTorch version beside it, written out from the same
 formulas (not autograd): :func:`naive_attention`, :func:`attention_fwd_plain`,
-:func:`attention_bwd_dkv_plain`, :func:`attention_bwd_dq_plain` and their
-``_bf16`` twins. A CPU tensor takes them; a CUDA tensor launches the kernel
-or raises (``kernels.use_kernel``).
+:func:`attention_bwd_dkv_plain`, :func:`attention_bwd_dq_plain` (the f32
+function itself, the split's products are a device detail),
+:func:`split_bf16x3_plain` and the ``_bf16`` twins. A CPU tensor takes them; a
+CUDA tensor launches the kernel or raises (``kernels.use_kernel``).
 """
 
 from __future__ import annotations
@@ -80,6 +84,30 @@ def attention_bwd_dq_plain(q, k, v, lse, do, di):
 
 
 _BF16 = torch.bfloat16
+
+
+def split_bf16x3_plain(x: torch.Tensor) -> torch.Tensor:
+    """(3, *x.shape) bf16 planes hi, mid, lo of an f32 tensor: hi = bf16(x),
+    mid = bf16(x − hi), lo = bf16(x − hi − mid), each rounded to nearest even
+    from an f32 difference, which is exact, so hi + mid + lo == x for normal x.
+    The plain version of the split kernel."""
+    hi = x.to(_BF16)
+    rest = x - hi.float()
+    mid = rest.to(_BF16)
+    return torch.stack((hi, mid, (rest - mid.float()).to(_BF16)))
+
+
+def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
+    """The split of :func:`split_bf16x3_plain`: the split kernel on a CUDA
+    tensor (contiguous f32, a multiple of 8 values), its plain version on CPU."""
+    if not kernels.use_kernel(x):
+        return split_bf16x3_plain(x)
+    kernels.check_cuda_input(x, "split_bf16x3", torch.float32, x.dim(), align=16)
+    if x.numel() % 8:
+        raise ValueError(f"split_bf16x3 takes a multiple of 8 values, got {x.numel()}")
+    out = torch.empty((3, *x.shape), dtype=_BF16, device=x.device)
+    kernels.launch("split_bf16x3", x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    return out
 
 
 def attention_fwd_plain_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -168,7 +196,8 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stats: bool
 
 
 def _bwd_kernels(q, k, v, lse, do, di):
-    """K5 then K4 (f32 or bf16, by q's dtype): (dq, dk, dv)."""
+    """K5 then K4 (f32 or bf16, by q's dtype): (dq, dk, dv). f32 operands go
+    to the kernels as their split planes, one split launch each."""
     B, Lq, Lk, H, D = _check(q, k, v, "flash_attn_bwd")
     for t, arg, shape, dtype in ((do, "do", q.shape, q.dtype), (lse, "lse", (B, H, Lq), torch.float32),
                                  (di, "di", (B, H, Lq), torch.float32)):
@@ -176,12 +205,13 @@ def _bwd_kernels(q, k, v, lse, do, di):
         if t.shape != shape:
             raise ValueError(f"flash_attn_bwd {arg}: expected {tuple(shape)}, got {tuple(t.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    names = [_kernel_name(base, q.dtype) for base in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")]
+    if q.dtype == torch.float32:
+        q, k, v, do = (split_bf16x3(t) for t in (q, k, v, do))
     ptrs = [t.data_ptr() for t in (q, k, v, lse, do, di)]
     scale = 1.0 / math.sqrt(D)
-    kernels.launch(_kernel_name("flash_attn_bwd_dq", q.dtype), q.device, *ptrs, dq.data_ptr(),
-                   B, H, Lq, Lk, D, scale)
-    kernels.launch(_kernel_name("flash_attn_bwd_dkv", q.dtype), q.device, *ptrs, dk.data_ptr(),
-                   dv.data_ptr(), B, H, Lq, Lk, D, scale)
+    kernels.launch(names[0], q.device, *ptrs, dq.data_ptr(), B, H, Lq, Lk, D, scale)
+    kernels.launch(names[1], q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), B, H, Lq, Lk, D, scale)
     return dq, dk, dv
 
 

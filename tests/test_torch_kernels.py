@@ -127,6 +127,62 @@ def test_library_name_tracks_source_and_flags():
     assert all((kernels.CSRC / f"{src}.cu").is_file() for src in kernels.SOURCES)
 
 
+def test_split_bf16x3_plain_reconstructs_f32_exactly():
+    """hi + mid + lo == x bit for bit (each difference of the split is exact),
+    over randn and magnitudes from 1e-30 to 1e30; hi is x rounded to bf16; a
+    CPU tensor takes the plain version, with no launch."""
+    rng = np.random.default_rng(0)
+    mags = 10.0 ** rng.uniform(-30, 30, 4096) * (1 + rng.random(4096)) * rng.choice([-1, 1], 4096)
+    x = torch.from_numpy(np.concatenate([rng.standard_normal(4096), mags]).astype(np.float32))
+    kernels.reset_launches()
+    planes = flash.split_bf16x3(x)
+    assert all(n == 0 for n in kernels.launches.values())
+    assert planes.shape == (3, 8192) and planes.dtype == torch.bfloat16
+    assert torch.equal(planes.view(torch.int16), flash.split_bf16x3_plain(x).view(torch.int16))
+    hi, mid, lo = planes.float()
+    assert torch.equal(hi, x.to(torch.bfloat16).float())
+    assert torch.equal((hi + mid) + lo, x)
+
+
+def _six_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b from the split planes of a and b: the six products of the
+    kernels, in their order (lo hi, mid mid, hi lo, mid hi, hi mid, then hi
+    hi), summed into one f32 accumulator."""
+    pa, pb = (flash.split_bf16x3_plain(x).float() for x in (a, b))
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        acc += pa[i] @ pb[j]
+    return acc
+
+
+@pytest.mark.parametrize("depth", [64, 128, 2048])
+def test_six_product_split_is_at_f32_level(depth):
+    """The split's six products of randn (256 x depth) by (depth x 256) stay
+    within 1e-6 of max|ref| of the f64 product: f32's level, where one bf16
+    product alone is ~1e-3 away."""
+    rng = np.random.default_rng(depth)
+    a = rng.standard_normal((256, depth)).astype(np.float32)
+    b = rng.standard_normal((depth, 256)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    got = _six_products(torch.from_numpy(a), torch.from_numpy(b)).double().numpy()
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+    hi_only = (torch.from_numpy(a).bfloat16().float() @ torch.from_numpy(b).bfloat16().float())
+    assert np.abs(hi_only.double().numpy() - ref).max() > 1e-4 * np.abs(ref).max()
+
+
+def test_f32_backward_is_bound_to_the_split_source():
+    """The f32 K4 and K5 and the split pass are the kernels of
+    flash_attn_split_bwd.cu; the FMA source flash_attn_bwd.cu is gone."""
+    assert kernels._ENTRY["flash_attn_bwd_dkv"][:2] == (
+        "flash_attn_split_bwd", "flash_attn_split_bwd_dkv_launch")
+    assert kernels._ENTRY["flash_attn_bwd_dq"][:2] == (
+        "flash_attn_split_bwd", "flash_attn_split_bwd_dq_launch")
+    assert kernels._ENTRY["split_bf16x3"][:2] == ("flash_attn_split_bwd", "split_bf16x3_launch")
+    assert "flash_attn_split_bwd" in kernels.SOURCES and "flash_attn_bwd" not in kernels.SOURCES
+    assert (kernels.CSRC / "flash_attn_split_bwd.cu").is_file()
+    assert not (kernels.CSRC / "flash_attn_bwd.cu").exists()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m", [(512, 2048), (2048, 2048), (1000, 333)])
 def test_nn_distance_kernel_matches_plain(cuda, n, m):
@@ -209,19 +265,26 @@ def test_flash_stats_kernel_matches_plain(cuda, lq, lk, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("spread", [1.0, 8.0])
 @pytest.mark.parametrize("dh", [64, 96, 128, 256])
 @pytest.mark.parametrize("length", [512, 2048])
-def test_flash_backward_kernels_match_plain(cuda, dh, length):
-    """K5 (dQ) and K4 (dK, dV) against the plain backward on the same
-    residuals, at atol 2e-4 and rtol 2e-4 (tests/test_flash_vjp.py's bound)."""
+def test_flash_backward_kernels_match_plain(cuda, dh, length, spread):
+    """K5 (dQ) and K4 (dK, dV), on the split planes of q, k, v and dO (one
+    split launch each), against the plain backward on the same residuals, at
+    atol 2e-4 and rtol 2e-4 (tests/test_flash_vjp.py's bound); also with q
+    scaled by 8 (a large spread of scores); a repeat gives the same bits."""
     q, k, v, do = _qkv(cuda, length, length, dh)
+    q = q * spread
     o, lse = flash.attention_fwd_plain(q, k, v)
     di = (o * do).sum(-1).transpose(1, 2).contiguous()
     before = dict(kernels.launches)
     dq, dk, dv = flash._bwd_kernels(q, k, v, lse, do, di)
+    again = flash._bwd_kernels(q, k, v, lse, do, di)
     torch.cuda.synchronize()
-    assert kernels.launches["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 1
-    assert kernels.launches["flash_attn_bwd_dkv"] == before["flash_attn_bwd_dkv"] + 1
+    assert kernels.launches["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 2
+    assert kernels.launches["flash_attn_bwd_dkv"] == before["flash_attn_bwd_dkv"] + 2
+    assert kernels.launches["split_bf16x3"] == before["split_bf16x3"] + 8
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
     dk_p, dv_p = flash.attention_bwd_dkv_plain(q, k, v, lse, do, di)
     dq_p = flash.attention_bwd_dq_plain(q, k, v, lse, do, di)
     for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
@@ -229,9 +292,55 @@ def test_flash_backward_kernels_match_plain(cuda, dh, length):
 
 
 @pytest.mark.cuda
+def test_f32_backward_launches_the_split_once_per_operand(cuda):
+    """One f32 flash backward splits q, k, v and dO (four split launches),
+    then launches K5 and K4 once each, and nothing else."""
+    q, k, v, do = _qkv(cuda, 512, 1024, 64)
+    o, lse = flash.attention_fwd_plain(q, k, v)
+    di = flash.attention_di(o, do)
+    before = dict(kernels.launches)
+    flash._bwd_kernels(q, k, v, lse, do, di)
+    torch.cuda.synchronize()
+    moved = {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES}
+    assert {n: c for n, c in moved.items() if c} == {
+        "split_bf16x3": 4, "flash_attn_bwd_dq": 1, "flash_attn_bwd_dkv": 1}
+
+
+@pytest.mark.cuda
+def test_f32_backward_refuses_lengths_off_its_tiles(cuda):
+    """The f32 K5 and K4 take Lq and Lk in multiples of 64: 544 against 512,
+    both ways, is refused by the wrapper before any launch, the split's
+    included."""
+    before = dict(kernels.launches)
+    for lq, lk in ((544, 512), (512, 544)):
+        q, k, v, do = _qkv(cuda, lq, lk, 64)
+        lse = torch.zeros(2, 8, lq, device="cuda")
+        with pytest.raises(ValueError, match="% 64"):
+            flash._bwd_kernels(q, k, v, lse, do, torch.zeros_like(lse))
+    assert kernels.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 512, 8, 64), (12, 2048, 8, 128), (3, 64, 1, 96)])
+def test_split_kernel_matches_plain(cuda, shape):
+    """The split kernel gives its plain version's planes bit for bit, over
+    randn and magnitudes from 1e-30 to 1e30."""
+    x = torch.randn(*shape, device="cuda", generator=cuda)
+    x[0] *= torch.logspace(-30, 30, x[0].numel(), device="cuda").view(x[0].shape)
+    before = kernels.launches["split_bf16x3"]
+    got = flash.split_bf16x3(x)
+    torch.cuda.synchronize()
+    assert kernels.launches["split_bf16x3"] == before + 1
+    want = flash.split_bf16x3_plain(x)
+    assert got.shape == (3, *shape) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
 def test_training_attention_launches_k3_stats_k4_k5(cuda):
     """scaled_attention with a gradient recorded goes through the flash
-    Function: K3 with statistics forward, K5 and K4 backward, and its
+    Function: K3 with statistics forward, the split of q, k, v and dO, K5 and
+    K4 backward, and its
     gradients agree with autograd through the naive math. Without a
     gradient (evaluation) it launches K3 alone."""
     q, k, v, do = _qkv(cuda, 2048, 512, 64)
@@ -242,7 +351,7 @@ def test_training_attention_launches_k3_stats_k4_k5(cuda):
     torch.cuda.synchronize()
     moved = {n: kernels.launches[n] - before[n] for n in kernels.KERNEL_NAMES}
     assert {n: c for n, c in moved.items() if c} == {
-        "flash_attn_stats": 1, "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
+        "flash_attn_stats": 1, "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1, "split_bf16x3": 4}
     ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad(naive_attention(*ref_ins), ref_ins, do)
     for a, b in zip(got, want):
