@@ -8,15 +8,17 @@ Phases (any failure exits non-zero):
 1. build the hand-written kernels from ``svdformer_pointsea_tpu_torch/csrc``
    (one nvcc per source, in parallel);
 2. hold each f32 kernel against its plain PyTorch version on the card (B = 4):
-   K1 / K2 / K3 at the evaluation shapes plus FPS's quirk inputs; at every
-   training attention site K3 with its row statistics against the plain
-   forward, K5 (dQ) and K4 (dK, dV) through the flash Function against
+   K1 / K2 at the evaluation shapes plus FPS's quirk inputs; K3 at every
+   attention site (and at dh 256) without and with its row statistics, q x 1
+   and q x 8, against the naive forward in f32 and the plain forward in f64
+   (O bit-equal with and without statistics and on a repeat); at every
+   training attention site K5 (dQ) and K4 (dK, dV) through the flash Function against
    autograd through the naive math and against their own second run (bit
    for bit: no atomics), also with q x 8 (a large spread of scores, held
    against the naive autograd in f64, whose f32 run is itself near the
    bound there); the
    split pass (``split_bf16x3``, the three bf16 planes of q, k, v and dO that
-   the f32 K4 and K5 take) against its plain version, bit for bit;
+   the f32 K3, K4 and K5 take) against its plain version, bit for bit;
 3. the same for the bf16 kernels at every attention site and at dh 256: bf16
    K3 without and with statistics (``flash_attn_bf16_fwd.cu``), K5 and K4
    (``flash_attn_bf16_bwd.cu``; all TMA / wgmma kernels) against their bf16
@@ -26,8 +28,8 @@ Phases (any failure exits non-zero):
    cases (q × 8: the running max moves between key tiles); ``-Xptxas -v`` of
    both bf16 sources (no spill in any K3, K4 or K5 instance at dh 64, 96,
    128; the dynamic shared memory from each launcher's export) and their
-   SASS (``HGMMA``, ``UTMALDG``); the same reports for the f32 K4 / K5 on
-   the split planes (``flash_attn_split_bwd.cu``);
+   SASS (``HGMMA``, ``UTMALDG``); the same reports for the f32 K3, K4 and K5
+   on the split planes (``flash_attn_split_fwd.cu``, ``flash_attn_split_bwd.cu``);
 4. evaluation main path: ``eval_pcn`` on a full-width PCN SVDFormer (random
    weights from a seeded generator) over 3 synthetic batches of 8, with the
    launch counters zeroed just before and read just after; every kernel of
@@ -38,7 +40,8 @@ Phases (any failure exits non-zero):
    take one ``make_train_step`` step on one synthetic batch of 12 (3 pad
    rows), one with the kernels (counters zeroed before, read after: K1, K2,
    K3 with statistics, K4 and K5 must all have launched, the flash kernels
-   12 times each and the split 48, four a backward) and one under
+   12 times each and the split 48: q, k and v in each forward, dO in each
+   backward) and one under
    ``reference_ops()``, both with PyTorch's deterministic algorithms; loss
    and parts must agree within 1e-4 relative and Adam's first moment per
    parameter within 1e-3 relative (L2; parameters whose exact gradient is 0
@@ -67,10 +70,12 @@ Phases (any failure exits non-zero):
    backend; the bf16 K3, K4 and K5 with their TFLOP/s, the floor their
    exponentials set, their device times from CUDA graphs beside SDPA's, and
    for the backward the di pass's, so that di + K5 + K4 stands beside SDPA's
-   one flash backward call; the f32 K4 and K5 with their shares of the
-   split-rate bound and of the FP32 pipes', and di + split + K5 + K4 beside
-   SDPA's memory-efficient backward in device time); a profiler breakdown of
-   both train steps by kernel family.
+   one flash backward call; the f32 K3, K4 and K5 with their shares of the
+   split-rate bound and of the FP32 pipes', the f32 K3's device time beside
+   SDPA's memory-efficient forward per training and per evaluation batch, and
+   di + split + K5 + K4 beside SDPA's memory-efficient backward in device
+   time); a profiler breakdown of both train steps and of an evaluation
+   batch in f32 and in bf16 mode by kernel family.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -148,11 +153,13 @@ NN_TRAIN_SITES = [(512, 2048), (2048, 2048), (256, 256), (256, 256), (2048, 2048
 # per train step also the loss pyramid's ground truths.
 FPS_SITES = [(2048, 512), (512, 128), (2048, 512), (2304, 512)]
 FPS_TRAIN_SITES = FPS_SITES + [(16384, 2048), (2048, 256)]
-EVAL_KERNELS = ("nn_distance", "fps", "flash_attn")
+# The evaluation path splits q, k and v for each f32 K3.
+EVAL_KERNELS = ("nn_distance", "fps", "flash_attn", "split_bf16x3")
 TRAIN_KERNELS = ("nn_distance", "fps", "flash_attn_stats", "flash_attn_bwd_dkv",
                  "flash_attn_bwd_dq", "split_bf16x3")
-# Flash launches of one f32 train step: 12 attention sites, each backward
-# splitting q, k, v and dO.
+# Flash launches of one f32 train step: 12 attention sites, each forward
+# splitting q, k and v (the planes are saved for the backward) and each
+# backward dO.
 F32_STEP_FLASH = {"flash_attn_stats": 12, "flash_attn_bwd_dq": 12, "flash_attn_bwd_dkv": 12,
                   "split_bf16x3": 48}
 BF16_KERNELS = ("flash_attn_bf16", "flash_attn_stats_bf16", "flash_attn_bwd_dkv_bf16",
@@ -170,15 +177,15 @@ SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
     "nn_distance": ("svdformer_pointsea_tpu_torch/csrc/nn_distance.cu",
                     "svdformer_pointsea_tpu/ops/nn_pallas.py:59"),
     "fps": ("svdformer_pointsea_tpu_torch/csrc/fps.cu", "svdformer_pointsea_tpu/ops/fps.py:68"),
-    "flash_attn": ("svdformer_pointsea_tpu_torch/csrc/flash_attn.cu",
+    "flash_attn": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_split_fwd.cu",
                    "svdformer_pointsea_tpu/nn/flash_vjp.py:153"),
-    "flash_attn_stats": ("svdformer_pointsea_tpu_torch/csrc/flash_attn.cu",
+    "flash_attn_stats": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_split_fwd.cu",
                          "svdformer_pointsea_tpu/nn/flash_vjp.py:160"),
     "flash_attn_bwd_dkv": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_split_bwd.cu",
                            "svdformer_pointsea_tpu/nn/flash_vjp.py:171"),
     "flash_attn_bwd_dq": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_split_bwd.cu",
                           "svdformer_pointsea_tpu/nn/flash_vjp.py:49"),
-    # Part of the f32 K4 / K5 port: the backward (flash_vjp.py::_bwd) runs both.
+    # Part of the f32 K3 / K4 / K5 port: the planes of q, k, v and dO.
     "split_bf16x3": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_split_bwd.cu",
                      "svdformer_pointsea_tpu/nn/flash_vjp.py:166"),
     "flash_attn_bf16": ("svdformer_pointsea_tpu_torch/csrc/flash_attn_bf16_fwd.cu",
@@ -193,17 +200,19 @@ SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
 # The TMA / wgmma sources: ptxas and SASS reports; per kernel, its label and
 # the C export that returns the dynamic shared memory its launcher requests
 # at a head dim.
-WGMMA_SOURCES = ("flash_attn_bf16_fwd", "flash_attn_bf16_bwd", "flash_attn_split_bwd")
+WGMMA_SOURCES = ("flash_attn_bf16_fwd", "flash_attn_bf16_bwd", "flash_attn_split_fwd",
+                 "flash_attn_split_bwd")
 SMEM_EXPORTS = {
     "wgmma_fwd_kernel": ("bf16", "flash_attn_bf16_fwd", "flash_attn_bf16_fwd_smem"),
     "bwd_dq_kernel": ("bf16", "flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dq_smem"),
     "bwd_dkv_kernel": ("bf16", "flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dkv_smem"),
+    "split_fwd_kernel": ("f32 split", "flash_attn_split_fwd", "flash_attn_split_fwd_smem"),
     "split_bwd_dq_kernel": ("f32 split", "flash_attn_split_bwd", "flash_attn_split_bwd_dq_smem"),
     "split_bwd_dkv_kernel": ("f32 split", "flash_attn_split_bwd", "flash_attn_split_bwd_dkv_smem"),
 }
 # Device-kernel name patterns of the train step's profile, first match wins.
 PROFILE_FAMILIES = [
-    ("K3 flash forward", r"flash_fwd_kernel"),
+    ("K3 flash forward (f32, split)", r"split_fwd_kernel"),
     ("K4 flash dK/dV (f32, split)", r"split_bwd_dkv_kernel"),
     ("K5 flash dQ (f32, split)", r"split_bwd_dq_kernel"),
     ("split pass (f32 backward)", r"split_bf16x3_kernel"),
@@ -271,10 +280,10 @@ def graph_ms(fn: Callable[[], object], reps: int = 10, replays: int = 5) -> floa
     return start.elapsed_time(end) / (reps * replays)
 
 
-# The f32 K4 and K5 run on the bf16 tensor cores, six products of split
+# The f32 K3, K4 and K5 run on the bf16 tensor cores, six products of split
 # parts for each product of the f32 function.
 SPLIT_FLOPS = BF16_FLOPS / 6
-SPLIT_KERNELS = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+SPLIT_KERNELS = ("flash_attn", "flash_attn_stats", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 
 
 def peak_flops(name: str) -> float:
@@ -424,16 +433,43 @@ def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
     if bool((picked[0, 1:, None] == torch.arange(10, 410, device=dev)).any()) or bool(picked[1].any()):
         fail("fps quirk semantics (origin skip / all-invalid fallback) broken")
 
-    err["flash_attn"] = 0.0
-    for lq, lk, dh in sorted(set(FLASH_SITES)) + [(512, 512, 256), (2048, 2048, 256)]:
+    # K3 without and with statistics (the split of q, k and v included) at
+    # every site and at dh 256 with q x 1, at every site with q x SPREAD: O
+    # and LSE against the naive forward in f32 and the plain forward in f64,
+    # both within FLASH_TOL at q x 1, the f64 one with q x SPREAD (where the
+    # f32 naive math is itself about FLASH_TOL from the f64 truth: its own
+    # distance is printed beside); O bit-equal with and without statistics
+    # and on a repeat.
+    err["flash_attn"] = err["flash_attn_stats"] = 0.0
+    k3_cases = ([(1.0, site) for site in sorted(set(FLASH_SITES)) + [(512, 512, 256),
+                                                                     (2048, 2048, 256)]]
+                + [(SPREAD, site) for site in sorted(set(FLASH_SITES))])
+    for spread, (lq, lk, dh) in k3_cases:
         q, k, v = (torch.randn(4, n_, 8, dh, device=dev, generator=g) for n_ in (lq, lk, lk))
+        q = q * spread
         o = flash.flash_attention(q, k, v)
+        o_s, lse = flash._flash_kernel(q, k, v, stats=True)
+        o_rep, lse_rep = flash._flash_kernel(q, k, v, stats=True)
         torch.cuda.synchronize()
-        e = (o - flash.naive_attention(q, k, v)).abs().max().item()
-        print(f"K3 flash_attn Lq {lq} Lk {lk} dh {dh}: max|Δ| {e:.3e}")
-        if not e <= FLASH_TOL:
-            fail(f"flash_attn ({lq}, {lk}, {dh}) differs by {e}")
-        err["flash_attn"] = max(err["flash_attn"], e)
+        if not (torch.equal(o, o_s) and torch.equal(o, o_rep) and torch.equal(lse, lse_rep)):
+            fail(f"K3 at ({lq}, {lk}, {dh}) x {spread:g}: O with and without statistics, or a "
+                 "repeat, differs")
+        o_n, (_, lse_p) = flash.naive_attention(q, k, v), flash.attention_fwd_plain(q, k, v)
+        o64, lse64 = flash.attention_fwd_plain(q.double(), k.double(), v.double())
+        e_o, e_l = (o - o_n).abs().max().item(), (lse - lse_p).abs().max().item()
+        e64 = [(o.double() - o64).abs().max().item(), (lse.double() - lse64).abs().max().item()]
+        own64 = [(o_n.double() - o64).abs().max().item(), (lse_p.double() - lse64).abs().max().item()]
+        print(f"K3 flash_attn / flash_attn_stats (q x {spread:g}) Lq {lq} Lk {lk} dh {dh}: O, lse "
+              f"max|Δ| vs f32 naive {e_o:.3e}, {e_l:.3e}; vs f64 {e64[0]:.3e}, {e64[1]:.3e} (f32 "
+              f"naive vs f64 {own64[0]:.3e}, {own64[1]:.3e}); bit-equal without statistics and on "
+              "a repeat")
+        gated = max(e64) if spread != 1.0 else max(e_o, e_l, *e64)
+        if not gated <= FLASH_TOL:
+            fail(f"K3 at ({lq}, {lk}, {dh}) x {spread:g} outside {FLASH_TOL}: {gated}")
+        if spread == 1.0:
+            err["flash_attn"] = max(err["flash_attn"], e_o)
+            err["flash_attn_stats"] = max(err["flash_attn_stats"], e_o, e_l)
+        del o, o_s, o_rep, o_n, o64
 
     # Training: K3 with statistics, then the split and K5 / K4 through the
     # Function's backward; each site also with q x SPREAD, where the backward
@@ -441,7 +477,7 @@ def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
     # against the naive autograd in f64: with the large spread the naive f32
     # math itself uses much of the bound at |dk| ~ 10, so it is no yardstick
     # there; its own excess over the f64 truth is printed beside the kernels'.
-    for name in ("flash_attn_stats", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "split_bf16x3"):
+    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv", "split_bf16x3"):
         err[name] = 0.0
     for spread in (1.0, SPREAD):
         for lq, lk, dh in sorted(set(FLASH_SITES)):
@@ -981,6 +1017,14 @@ def sdpa_flash_backward(torch, qt, kt, vt, dot) -> Callable[[], object]:
                        offset)
 
 
+def sdpa_efficient_forward(torch, qt, kt, vt, stats: bool) -> Callable[[], object]:
+    """One call of SDPA's memory-efficient forward (the aten op under
+    ``scaled_dot_product_attention``'s memory-efficient backend, f32) on (B,
+    h, L, dh) views: O, and with ``stats`` its row log-sum-exp, as the
+    training forward computes it."""
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(qt, kt, vt, None, stats)
+
+
 def sdpa_efficient_backward(torch, qt, kt, vt, dot) -> Callable[[], object]:
     """One call of SDPA's memory-efficient backward (the aten op under
     ``scaled_dot_product_attention``'s memory-efficient backend, f32) on (B,
@@ -1021,6 +1065,8 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     out["flash_attn_bwd_dq_bf16"]["di_device_ms"] = 0.0
     for name in SPLIT_KERNELS:
         out[name].update(flop=0.0, fp32_ms=0.0, device_ms=0.0, library_device_ms=0.0)
+    for name in ("flash_attn", "flash_attn_stats"):
+        out[name]["wrapper_device_ms"] = 0.0
     out["flash_attn_bwd_dq"]["di_device_ms"] = 0.0
     out["split_bf16x3"]["device_ms"] = 0.0
 
@@ -1043,6 +1089,33 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
         return (f" [{flop / k_ms / 1e9:.1f} TFLOP/s, {k_ms / lib:.3f} x sdpa, exp floor "
                 f"{floor:.4f} ms; device (CUDA graph) {dev:.4f} ms, {flop / dev / 1e9:.1f} "
                 f"TFLOP/s, sdpa {lib_dev:.4f} ms, {dev / lib_dev:.3f} x sdpa]")
+
+    def k3_f32(name, b, lq, lk, dh, k_ms, lib, q, k, v, stats):
+        """Adds the f32 K3's flops, FP32-pipe bound and device times: through
+        the wrapper (the split of q, k and v, then K3), K3 alone on the
+        planes, and SDPA's memory-efficient forward; returns the text for its
+        timing line."""
+        r = out[name]
+        flop = 4 * b * 8 * lq * lk * dh
+        planes = [flash.split_bf16x3(x) for x in (q, k, v)]
+        o = torch.empty_like(q)
+        lse = torch.empty(b, 8, lq, device=dev) if stats else None
+        ptrs = [x.data_ptr() for x in planes] + [o.data_ptr(), lse.data_ptr() if stats else None]
+        alone = graph_ms(lambda: kernels.launch(name, q.device, *ptrs, b, 8, lq, lk, dh,
+                                                1.0 / math.sqrt(dh)))
+        wrapper = graph_ms(lambda: flash._flash_kernel(q, k, v, stats=stats))
+        with torch.no_grad():
+            lib_dev = graph_ms(sdpa_efficient_forward(torch, *(x.transpose(1, 2) for x in (q, k, v)),
+                                                      stats))
+        r["flop"] += flop
+        r["fp32_ms"] += 1e3 * flop / F32_FLOPS
+        r["device_ms"] += alone
+        r["wrapper_device_ms"] += wrapper
+        r["library_device_ms"] += lib_dev
+        bound = bound_ms(*attention_work(b, 8, lq, lk, dh, name), SPLIT_FLOPS)
+        return (f" [{k_ms / lib:.3f} x sdpa; device (CUDA graph) split + K3 {wrapper:.4f} ms, K3 "
+                f"alone {alone:.4f} ms ({flop / alone / 1e9:.1f} TFLOP/s, {100 * bound / alone:.1f} "
+                f"% of the split-rate bound), sdpa {lib_dev:.4f} ms, {wrapper / lib_dev:.3f} x sdpa]")
 
     def bwd_device(sfx, b, lq, lk, dh, k_ms, run, run_di, run_sdpa, run_split=None):
         """Adds K5's and K4's flops and device times (``k_ms``, ``run``: per
@@ -1137,7 +1210,8 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
             name = "flash_attn" + sfx
             add(name, k_ms, p_ms, *attention_work(B_MAIN, 8, lq, lk, dh, name), lib)
             extra = (k3_bf16(name, B_MAIN, lq, lk, dh, k_ms, lib, lambda: sdpa(qt, kt, vt), q, k,
-                             v, False) if sfx else "")
+                             v, False) if sfx
+                     else k3_f32(name, B_MAIN, lq, lk, dh, k_ms, lib, q, k, v, False))
             print(f"time K3{sfx} ({lq}, {lk}, {dh}): {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                   f"sdpa {lib:.4f} ms{extra}")
 
@@ -1184,6 +1258,7 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
                                        lambda: flash.attention_di(o, do),
                                        sdpa_flash_backward(torch, *detached, dot))
             else:
+                extra = k3_f32("flash_attn_stats", B_TRAIN, lq, lk, dh, k3, lib_f, q, k, v, True)
                 extra_bwd = bwd_device(sfx, B_TRAIN, lq, lk, dh, bwd_ms, run,
                                        lambda: flash.attention_di(o, do),
                                        sdpa_efficient_backward(torch, *detached, dot),
@@ -1208,15 +1283,25 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
               f"{r['device_ms'] / r['library_device_ms']:.3f}")
     for name in SPLIT_KERNELS:
         r = out[name]
-        print(f"time {name} (f32, split) per training batch of {B_TRAIN}: {r['ms']:.4f} ms "
+        per = f"eval batch of {B_MAIN}" if name == "flash_attn" else f"training batch of {B_TRAIN}"
+        lib = "sdpa bwd" if "_bwd" in name else "sdpa fwd"
+        print(f"time {name} (f32, split) per {per}: {r['ms']:.4f} ms "
               f"({r['flop'] / r['ms'] / 1e9:.1f} TFLOP/s, {100 * r['bound_ms'] / r['ms']:.1f} % of "
               f"the split-rate bound {r['bound_ms']:.4f} ms at {SPLIT_FLOPS / 1e12:.1f} TFLOP/s; FP32 "
-              f"pipes' bound {r['fp32_ms']:.4f} ms, {100 * r['fp32_ms'] / r['ms']:.1f} %); sdpa bwd "
+              f"pipes' bound {r['fp32_ms']:.4f} ms, {100 * r['fp32_ms'] / r['ms']:.1f} %); {lib} "
               f"{r['library_ms']:.4f} ms, ratio {r['ms'] / r['library_ms']:.3f}; device (CUDA "
               f"graph) {r['device_ms']:.4f} ms ({r['flop'] / r['device_ms'] / 1e9:.1f} TFLOP/s, "
               f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of the split-rate bound, "
-              f"{100 * r['fp32_ms'] / r['device_ms']:.1f} % of the FP32 pipes'), sdpa bwd "
+              f"{100 * r['fp32_ms'] / r['device_ms']:.1f} % of the FP32 pipes'), {lib} "
               f"{r['library_device_ms']:.4f} ms")
+    for name, per in (("flash_attn_stats", f"training batch of {B_TRAIN}, with statistics"),
+                      ("flash_attn", f"eval batch of {B_MAIN}")):
+        r = out[name]
+        print(f"time f32 K3 per {per}, device (CUDA graph): split of q, k, v + K3 "
+              f"{r['wrapper_device_ms']:.4f} ms (K3 alone {r['device_ms']:.4f}); sdpa "
+              f"memory-efficient forward {r['library_device_ms']:.4f} ms; ratio "
+              f"{r['wrapper_device_ms'] / r['library_device_ms']:.3f} (K3 alone "
+              f"{r['device_ms'] / r['library_device_ms']:.3f})")
     r = out["split_bf16x3"]
     print(f"time split_bf16x3 per training batch of {B_TRAIN}: {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes); device (CUDA graph) "
@@ -1262,18 +1347,18 @@ def train_times(torch, kernels, run, label: str = "train") -> Dict[str, List[flo
     return ms
 
 
-def train_profile(torch, run, label: str = "train") -> None:
-    """Device time of two kernel train steps by kernel family (torch.profiler)."""
+def kernel_profile(torch, fn: Callable[[], object], label: str = "train") -> None:
+    """Device time of two calls of ``fn`` (a kernel train step or evaluation
+    batch) by kernel family (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model, state, step, partial, gt, weights = run
-    step(state, partial, gt, weights, 1e-6)
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
-            step(state, partial, gt, weights, 1e-6)
+            fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
     fam: Dict[str, float] = {}
@@ -1290,7 +1375,8 @@ def train_profile(torch, run, label: str = "train") -> None:
     if busy == 0:
         print("profile: the profiler recorded no device time")
         return
-    print(f"profile per {label} step: host wall {wall_ms:.2f} ms (profiler on), device busy "
+    unit = "batch" if "eval" in label else "step"
+    print(f"profile per {label} {unit}: host wall {wall_ms:.2f} ms (profiler on), device busy "
           f"{busy:.2f} ms ({100 * busy / wall_ms:.1f} %)")
     for family, v in sorted(fam.items(), key=lambda kv: -kv[1]):
         print(f"profile {label}  {family:32s} {v:9.3f} ms  {100 * v / busy:5.1f} %")
@@ -1376,6 +1462,7 @@ def main() -> int:
             print(f"{precision} eval completions/s at B=8 (render + forward + CD/DCD/F1): "
                   "kernels " + ", ".join(f"{r:.2f}" for r in rates["kernels"]) + "; plain "
                   + ", ".join(f"{r:.2f}" for r in rates["plain"]))
+            kernel_profile(torch, lambda: eval_fn(partial, gt), f"{precision} eval")
     del model, eval_fn
     for precision in ("f32", "bf16"):
         label = "train" if precision == "f32" else "bf16 train"
@@ -1390,7 +1477,7 @@ def main() -> int:
                                                         train_batch.data["gtcloud"])) + (weights,)
         with mixed_precision(precision == "bf16"):
             step_ms[precision] = train_times(torch, kernels, run, label)
-            train_profile(torch, run, label)
+            kernel_profile(torch, lambda: tstep(tstate, *run[3:], 1e-6), label)
         del run, tmodel, tstate, tstep
         torch.cuda.empty_cache()
 
@@ -1417,8 +1504,9 @@ def main() -> int:
                     else f"training batch of {B_TRAIN}"),
         })
         if "library_device_ms" in t:  # its and SDPA's device times (CUDA graph)
-            report["kernels"][-1].update({key: round(t[key], 4)
-                                          for key in ("device_ms", "library_device_ms")})
+            report["kernels"][-1].update({key: round(t[key], 4) for key in
+                                          ("device_ms", "wrapper_device_ms", "library_device_ms")
+                                          if key in t})
         elif "device_ms" in t:  # the split pass: no library call
             report["kernels"][-1]["device_ms"] = round(t["device_ms"], 4)
     for row in report["kernels"]:

@@ -139,17 +139,13 @@ def main() -> int:
               + f"; other / port {dev_sums['other'] / dev_sums['port']:.2f} x, port / sdpa "
               f"{dev_sums['port'] / dev_sums['sdpa']:.3f}")
 
-    # Host cost of the C entry points alone, outputs allocated beforehand.
-    q, k, v, o = (torch.randn(1, 512, HEADS, 64, device="cuda", generator=g) for _ in range(4))
+    # Host cost of the C entry points alone, outputs allocated beforehand
+    # (the f32 K3's: bench_f32_fwd.py).
+    bf = [torch.randn(1, 512, HEADS, 64, device="cuda", generator=g).to(torch.bfloat16)
+          for _ in range(4)]  # q, k, v, o, kept alive while timed
     shape = [None, 1, HEADS, 512, 512, 64, 0.125, torch.cuda.current_stream().cuda_stream]
-    bf = [x.to(torch.bfloat16) for x in (q, k, v, o)]  # kept alive while timed
-    ptrs = {torch.float32: [x.data_ptr() for x in (q, k, v, o)],
-            torch.bfloat16: [x.data_ptr() for x in bf]}
-    entries = {f"bf16 {name}": (fn, torch.bfloat16) for name, fn in fns.items()}
-    entries["f32 K3 (no tensor maps)"] = (kernels._libs["flash_attn"].flash_attn_fwd_launch,
-                                          torch.float32)
-    per = {name: host_us(lambda fn=fn, p=ptrs[dtype]: fn(*p, *shape))
-           for name, (fn, dtype) in entries.items()}
+    per = {f"bf16 {name}": host_us(lambda fn=fn: fn(*(x.data_ptr() for x in bf), *shape))
+           for name, fn in fns.items()}
     print("host µs per launch, B 1 (512, 512, 64): "
           + ", ".join(f"{name} {us:.2f}" for name, us in per.items()))
     print(cs.smi_line())

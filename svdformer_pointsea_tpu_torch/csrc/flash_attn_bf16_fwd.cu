@@ -100,38 +100,6 @@ __device__ __forceinline__ void start_pv(float (&o)[D / 2], const uint32_t (&p)[
   wgmma_commit();
 }
 
-// Online softmax over one tile of raw scores s (accumulator layout: elements
-// 4i, 4i+1 of row g, 4i+2, 4i+3 of row g+8): m2 the running max in log2
-// units, l this thread's running partial sums, alpha the factor that carries
-// the accumulator to the new max; s becomes the f32 exponentials.
-template <int N>
-__device__ __forceinline__ void online_softmax(float (&s)[N], float (&m2)[2], float (&l)[2],
-                                               float (&alpha)[2], float scale_log2) {
-  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
-  }
-  float neg_m[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m_new = fmaxf(m2[r], quad_max(mx[r]) * scale_log2);  // scale > 0
-    alpha[r] = ex2(m2[r] - m_new);  // ex2(-inf) = 0 on the first tile
-    m2[r] = m_new;
-    neg_m[r] = -m_new;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int r = (i >> 1) & 1;
-    s[i] = ex2(fmaf(s[i], scale_log2, neg_m[r]));
-    sum[r] += s[i];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,

@@ -5,11 +5,12 @@ use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
 library under ``build/torch_kernels/`` of the checkout, then loaded with
 ``ctypes``. One source may hold several kernels (``flash_attn_split_bwd.cu``:
 the f32 K4 and K5 and the split pass that feeds them; ``flash_attn_bf16_bwd.cu``:
-the bf16 K4 and K5) or serve two kernel names (``flash_attn.cu`` and
+the bf16 K4 and K5) or serve two kernel names (``flash_attn_split_fwd.cu`` and
 ``flash_attn_bf16_fwd.cu``: K3 without and with its row statistics), each with
-its own launch counter. The tensor-core sources include ``csrc/sm90.cuh``; a
-library's name hashes its source, the headers and the flags. Nothing is compiled or loaded at import time, so the package imports on
-a machine without a GPU or a CUDA toolkit.
+its own launch counter. The tensor-core sources include ``csrc/sm90.cuh`` (the
+f32 ones through ``csrc/split.cuh``); a library's name hashes its source, the
+headers and the flags. Nothing is compiled or loaded at import time, so the
+package imports on a machine without a GPU or a CUDA toolkit.
 
 Every wrapper in ``ops/`` and ``nn/`` decides its path the same way
 (:func:`use_kernel`): a CPU tensor takes the plain PyTorch version, a CUDA
@@ -51,13 +52,13 @@ _L = ctypes.c_longlong
 _ENTRY = {
     "nn_distance": ("nn_distance", "nn_one_way_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "fps": ("fps", "fps_launch", [_P, _P, _I, _I, _I, _P]),
-    # K3 without and with the row statistics (one kernel, lse null or not).
-    "flash_attn": ("flash_attn", "flash_attn_fwd_launch",
-                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_attn_stats": ("flash_attn", "flash_attn_fwd_launch",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    # The f32 K4 and K5 on the bf16 tensor cores, on the three bf16 planes
+    # The f32 K3 without and with the row statistics (one kernel, lse null or
+    # not), K4 and K5, all on the bf16 tensor cores, on the three bf16 planes
     # (hi, mid, lo) of q, k, v and dO that the split pass makes.
+    "flash_attn": ("flash_attn_split_fwd", "flash_attn_split_fwd_launch",
+                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_attn_stats": ("flash_attn_split_fwd", "flash_attn_split_fwd_launch",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attn_bwd_dkv": ("flash_attn_split_bwd", "flash_attn_split_bwd_dkv_launch",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attn_bwd_dq": ("flash_attn_split_bwd", "flash_attn_split_bwd_dq_launch",

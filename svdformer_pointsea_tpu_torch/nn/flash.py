@@ -8,11 +8,13 @@ term ``di`` are (B, h, Lq) f32.
 - :func:`flash_attention`: O only (kernel K3), for evaluation;
 - :class:`FlashAttention`: the differentiable version for training. Its
   forward launches K3 with the row statistics (``lse``, the log-sum-exp of
-  the scaled logits: upstream's ``m`` + log ``l``) and saves q, k, v, o and
-  lse; its backward launches K5 (dQ) and K4 (dK, dV). In f32 these run on
-  the bf16 tensor cores with f32 accuracy: :func:`split_bf16x3` first turns
-  each of q, k, v and dO into three bf16 planes (hi, mid, lo) whose sum is
-  the f32 value, and every product is the six products of their parts.
+  the scaled logits: upstream's ``m`` + log ``l``) and saves q, k, v (as the
+  kernels take them), o and lse; its backward launches K5 (dQ) and K4 (dK,
+  dV). In f32 all three run on the bf16 tensor cores with f32 accuracy:
+  :func:`split_bf16x3` turns each of q, k, v (in the forward) and dO (in the
+  backward) into three bf16 planes (hi, mid, lo) whose sum is the f32 value,
+  and every product is the six products of their parts. The forward saves
+  the planes of q, k and v, so the backward splits dO alone.
 
 q, k and v are all f32 or all bf16. bf16 inputs (``--precision bf16``) take
 the bf16 instances of the kernels, on the tensor cores, which compute what
@@ -38,9 +40,10 @@ import torch
 from svdformer_pointsea_tpu_torch import kernels
 
 FLASH_HEAD_DIMS = (64, 96, 128, 256)
-# Lq and Lk are multiples of the kernels' row tiles: 64 rows for the f32 K3 /
-# K4 / K5, 128 for their bf16 instances.
-FLASH_BLOCK = {torch.float32: 64, torch.bfloat16: 128}
+# Lq and Lk are multiples of the kernels' row tiles: 128 rows for K3 (f32 and
+# bf16) and the bf16 K4 / K5, 64 for the f32 K4 / K5.
+FLASH_BLOCK = {torch.float32: 128, torch.bfloat16: 128}
+FLASH_BWD_BLOCK = {torch.float32: 64, torch.bfloat16: 128}
 
 
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -168,8 +171,11 @@ def _kernel_name(base: str, dtype: torch.dtype) -> str:
     return base + "_bf16" if dtype == _BF16 else base
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
-    if q.dtype not in FLASH_BLOCK:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str, blocks=FLASH_BLOCK):
+    """(B, Lq, Lk, H, D) of kernel operands q, k, v, or a ValueError before any
+    launch: one dtype of ``blocks``, contiguous CUDA tensors, lengths multiples
+    of the dtype's row tile."""
+    if q.dtype not in blocks:
         raise ValueError(f"{name}: expected torch.float32 or torch.bfloat16, got {q.dtype}")
     for t, arg in ((q, "q"), (k, "k"), (v, "v")):
         kernels.check_cuda_input(t, f"{name} {arg}", q.dtype, 4, align=16)  # 16-byte loads
@@ -177,42 +183,73 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
     Lk = k.shape[1]
     if k.shape != (B, Lk, H, D) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    block = FLASH_BLOCK[q.dtype]
+    block = blocks[q.dtype]
     if D not in FLASH_HEAD_DIMS or Lq % block or Lk % block or Lk == 0:
         raise ValueError(f"{name} takes dh in {FLASH_HEAD_DIMS} and lengths % {block} == 0, "
                          f"got dh {D}, Lq {Lq}, Lk {Lk}")
     return B, Lq, Lk, H, D
 
 
-def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stats: bool = False):
-    """K3 (f32 or bf16, by q's dtype): o, or (o, lse) with ``stats``."""
-    name = _kernel_name("flash_attn_stats" if stats else "flash_attn", q.dtype)
-    B, Lq, Lk, H, D = _check(q, k, v, name)
-    out = torch.empty_like(q)
-    lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device) if stats else None
-    kernels.launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+def _operands(*xs: torch.Tensor):
+    """Checked operands as the kernels take them: f32 as their split planes
+    (one split launch each), bf16 as they are."""
+    if xs[0].dtype == torch.float32:
+        return tuple(split_bf16x3(x) for x in xs)
+    return xs
+
+
+def _k3(name: str, dims, ops, dtype: torch.dtype, stats: bool):
+    """One K3 launch on operands ``ops`` (see :func:`_operands`): (o, lse or None)."""
+    B, Lq, Lk, H, D = dims
+    out = torch.empty(B, Lq, H, D, dtype=dtype, device=ops[0].device)
+    lse = torch.empty(B, H, Lq, dtype=torch.float32, device=out.device) if stats else None
+    kernels.launch(name, out.device, *(t.data_ptr() for t in ops), out.data_ptr(),
                    None if lse is None else lse.data_ptr(), B, H, Lq, Lk, D, 1.0 / math.sqrt(D))
+    return out, lse
+
+
+def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stats: bool = False):
+    """K3 (f32 or bf16, by q's dtype): o, or (o, lse) with ``stats``. f32 q,
+    k, v go to the kernel as their split planes, one split launch each."""
+    name = _kernel_name("flash_attn_stats" if stats else "flash_attn", q.dtype)
+    dims = _check(q, k, v, name)
+    out, lse = _k3(name, dims, _operands(q, k, v), q.dtype, stats)
     return (out, lse) if stats else out
+
+
+def _check_residuals(dims, dtype: torch.dtype, lse, do, di) -> None:
+    """dO (in the operands' dtype), lse and di as K5 and K4 take them, or a
+    ValueError before any launch."""
+    B, Lq, _, H, D = dims
+    for t, arg, shape, dt in ((do, "do", (B, Lq, H, D), dtype),
+                              (lse, "lse", (B, H, Lq), torch.float32),
+                              (di, "di", (B, H, Lq), torch.float32)):
+        kernels.check_cuda_input(t, f"flash_attn_bwd {arg}", dt, len(shape), align=16)
+        if t.shape != shape:
+            raise ValueError(f"flash_attn_bwd {arg}: expected {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _bwd_launch(dims, dtype: torch.dtype, ops, lse, do, di):
+    """K5 then K4 on checked forward operands ``ops`` (see :func:`_operands`)
+    and residuals: (dq, dk, dv). An f32 dO is split first, one launch."""
+    B, Lq, Lk, H, D = dims
+    dev = do.device
+    dq = torch.empty(B, Lq, H, D, dtype=dtype, device=dev)
+    dk, dv = (torch.empty(B, Lk, H, D, dtype=dtype, device=dev) for _ in range(2))
+    names = [_kernel_name(base, dtype) for base in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")]
+    ptrs = [t.data_ptr() for t in (*ops, lse, *_operands(do), di)]
+    scale = 1.0 / math.sqrt(D)
+    kernels.launch(names[0], dev, *ptrs, dq.data_ptr(), B, H, Lq, Lk, D, scale)
+    kernels.launch(names[1], dev, *ptrs, dk.data_ptr(), dv.data_ptr(), B, H, Lq, Lk, D, scale)
+    return dq, dk, dv
 
 
 def _bwd_kernels(q, k, v, lse, do, di):
     """K5 then K4 (f32 or bf16, by q's dtype): (dq, dk, dv). f32 operands go
     to the kernels as their split planes, one split launch each."""
-    B, Lq, Lk, H, D = _check(q, k, v, "flash_attn_bwd")
-    for t, arg, shape, dtype in ((do, "do", q.shape, q.dtype), (lse, "lse", (B, H, Lq), torch.float32),
-                                 (di, "di", (B, H, Lq), torch.float32)):
-        kernels.check_cuda_input(t, f"flash_attn_bwd {arg}", dtype, len(shape), align=16)
-        if t.shape != shape:
-            raise ValueError(f"flash_attn_bwd {arg}: expected {tuple(shape)}, got {tuple(t.shape)}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    names = [_kernel_name(base, q.dtype) for base in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")]
-    if q.dtype == torch.float32:
-        q, k, v, do = (split_bf16x3(t) for t in (q, k, v, do))
-    ptrs = [t.data_ptr() for t in (q, k, v, lse, do, di)]
-    scale = 1.0 / math.sqrt(D)
-    kernels.launch(names[0], q.device, *ptrs, dq.data_ptr(), B, H, Lq, Lk, D, scale)
-    kernels.launch(names[1], q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), B, H, Lq, Lk, D, scale)
-    return dq, dk, dv
+    dims = _check(q, k, v, "flash_attn_bwd", FLASH_BWD_BLOCK)
+    _check_residuals(dims, q.dtype, lse, do, di)
+    return _bwd_launch(dims, q.dtype, _operands(q, k, v), lse, do, di)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -233,8 +270,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        ctx.dims = None  # the plain path
         if kernels.use_kernel(q):
-            o, lse = _flash_kernel(q, k, v, stats=True)
+            name = _kernel_name("flash_attn_stats", q.dtype)
+            ctx.dims, dtype = _check(q, k, v, name), q.dtype
+            q, k, v = _operands(q, k, v)  # f32: the planes, which the backward reads too
+            o, lse = _k3(name, ctx.dims, (q, k, v), dtype, stats=True)
         else:
             o, lse = _plain_fwd(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -245,8 +286,9 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         di = attention_di(o, do)
-        if kernels.use_kernel(q):
-            return _bwd_kernels(q, k, v, lse, do, di)
+        if ctx.dims is not None:  # the backward takes the path its forward took
+            _check_residuals(ctx.dims, o.dtype, lse, do, di)
+            return _bwd_launch(ctx.dims, o.dtype, (q, k, v), lse, do, di)
         return _plain_bwd(q, k, v, lse, do, di)
 
 

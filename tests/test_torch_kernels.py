@@ -155,19 +155,59 @@ def _six_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-@pytest.mark.parametrize("depth", [64, 128, 2048])
-def test_six_product_split_is_at_f32_level(depth):
-    """The split's six products of randn (256 x depth) by (depth x 256) stay
-    within 1e-6 of max|ref| of the f64 product: f32's level, where one bf16
-    product alone is ~1e-3 away."""
+@pytest.mark.parametrize("depth,a_kind", [
+    pytest.param(64, "randn", id="64"), pytest.param(128, "randn", id="128"),
+    pytest.param(2048, "randn", id="2048"), pytest.param(128, "softmax", id="softmax-128"),
+    pytest.param(2048, "softmax", id="softmax-2048"),
+])
+def test_six_product_split_is_at_f32_level(depth, a_kind):
+    """The split's six products of A (256 x depth) by randn (depth x 256)
+    stay within 1e-6 of max|ref| of the f64 product: f32's level, where one
+    bf16 product alone is ~1e-3 away. A is randn, or a row softmax of randn x
+    4 (values in [0, 1], rows summing to 1: the P of the forward's P V)."""
     rng = np.random.default_rng(depth)
-    a = rng.standard_normal((256, depth)).astype(np.float32)
+    a = rng.standard_normal((256, depth))
+    if a_kind == "softmax":
+        a = np.exp(4 * a - 4 * a.max(axis=1, keepdims=True))
+        a /= a.sum(axis=1, keepdims=True)
+    a = a.astype(np.float32)
     b = rng.standard_normal((depth, 256)).astype(np.float32)
     ref = a.astype(np.float64) @ b.astype(np.float64)
     got = _six_products(torch.from_numpy(a), torch.from_numpy(b)).double().numpy()
     assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
     hi_only = (torch.from_numpy(a).bfloat16().float() @ torch.from_numpy(b).bfloat16().float())
     assert np.abs(hi_only.double().numpy() - ref).max() > 1e-4 * np.abs(ref).max()
+
+
+def test_f32_forward_is_bound_to_the_split_source():
+    """The f32 K3, without and with statistics, is the kernel of
+    flash_attn_split_fwd.cu on the split planes; the FMA source flash_attn.cu
+    is gone."""
+    for name in ("flash_attn", "flash_attn_stats"):
+        assert kernels._ENTRY[name][:2] == ("flash_attn_split_fwd", "flash_attn_split_fwd_launch")
+    assert "flash_attn_split_fwd" in kernels.SOURCES and "flash_attn" not in kernels.SOURCES
+    assert (kernels.CSRC / "flash_attn_split_fwd.cu").is_file()
+    assert (kernels.CSRC / "split.cuh").is_file()
+    assert not (kernels.CSRC / "flash_attn.cu").exists()
+
+
+def test_flash_function_saves_its_operands_and_runs_plain_on_cpu():
+    """On CPU tensors the flash Function saves q, k, v (the split planes only
+    where it launches the kernels), O and lse, and differentiates through the
+    plain versions: gradients as autograd through the naive math, no launch."""
+    kernels.reset_launches()
+    q, k, v = (torch.randn(2, 256, 2, 64, requires_grad=True) for _ in range(3))
+    out = flash.flash_attention_train(q, k, v)
+    saved = out.grad_fn.saved_tensors
+    assert all(torch.equal(a, b) for a, b in zip(saved[:3], (q, k, v)))
+    o, lse = flash.attention_fwd_plain(q.detach(), k.detach(), v.detach())
+    assert torch.equal(saved[3], out) and torch.equal(saved[4], lse)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(naive_attention(q, k, v), (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+    assert all(n == 0 for n in kernels.launches.values())
 
 
 def test_f32_backward_is_bound_to_the_split_source():
@@ -208,18 +248,30 @@ def test_fps_kernel_matches_plain(cuda, n, m):
     assert not got[1].any()
 
 
+# The f32 K3's cases: q x 8 (a large spread of scores, the running max moving
+# between key tiles) against the naive math in f64, where the f32 naive math
+# is itself about 2e-5 from the f64 one; dh 256 is off the model's path.
+F32_K3_CASES = [(512, 512, 96, 1.0), (512, 512, 64, 1.0), (2048, 512, 64, 1.0),
+                (1024, 1024, 128, 1.0), (512, 1024, 256, 1.0), (512, 512, 96, 8.0),
+                (2048, 512, 64, 8.0), (1024, 1024, 128, 8.0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk,dh", [(512, 512, 96), (512, 512, 64), (2048, 512, 64),
-                                      (1024, 1024, 128), (512, 1024, 256)])
-def test_flash_kernel_matches_naive(cuda, lq, lk, dh):
-    q = torch.randn(2, lq, 8, dh, device="cuda", generator=cuda)
+@pytest.mark.parametrize("lq,lk,dh,spread", F32_K3_CASES)
+def test_flash_kernel_matches_naive(cuda, lq, lk, dh, spread):
+    """K3 (the split of q, k and v, then the kernel on the planes) against
+    the naive math at atol 2e-5, in f32 with q x 1 and in f64 with q x 8."""
+    q = torch.randn(2, lq, 8, dh, device="cuda", generator=cuda) * spread
     k = torch.randn(2, lk, 8, dh, device="cuda", generator=cuda)
     v = torch.randn(2, lk, 8, dh, device="cuda", generator=cuda)
-    before = kernels.launches["flash_attn"]
+    before = dict(kernels.launches)
     out = scaled_attention(q, k, v)
     torch.cuda.synchronize()
-    assert kernels.launches["flash_attn"] == before + 1
-    np.testing.assert_allclose(out.cpu().numpy(), naive_attention(q, k, v).cpu().numpy(), atol=2e-5)
+    assert kernels.launches["flash_attn"] == before["flash_attn"] + 1
+    assert kernels.launches["split_bf16x3"] == before["split_bf16x3"] + 3
+    ref = (q, k, v) if spread == 1.0 else (q.double(), k.double(), v.double())
+    np.testing.assert_allclose(out.double().cpu().numpy(), naive_attention(*ref).cpu().numpy(),
+                               atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -246,22 +298,42 @@ def _qkv(gen, lq, lk, dh, b=2, h=8, dtype=torch.float32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk,dh", [(512, 512, 96), (2048, 512, 64), (1024, 1024, 128),
-                                      (512, 1024, 256)])
-def test_flash_stats_kernel_matches_plain(cuda, lq, lk, dh):
-    """K3 with its row statistics: O (bit-equal to K3 without them) and the
-    log-sum-exp against the plain forward."""
+@pytest.mark.parametrize("lq,lk,dh,spread", F32_K3_CASES)
+def test_flash_stats_kernel_matches_plain(cuda, lq, lk, dh, spread):
+    """K3 with its row statistics: O (bit-equal to K3 without them and on a
+    repeat) and the log-sum-exp against the plain forward, in f32 with q x 1
+    and in f64 with q x 8, at atol 2e-5."""
     q, k, v, _ = _qkv(cuda, lq, lk, dh)
+    q = q * spread
     before = dict(kernels.launches)
     o, lse = flash._flash_kernel(q, k, v, stats=True)
     o_eval = flash._flash_kernel(q, k, v)
+    o_again, lse_again = flash._flash_kernel(q, k, v, stats=True)
     torch.cuda.synchronize()
-    assert kernels.launches["flash_attn_stats"] == before["flash_attn_stats"] + 1
+    assert kernels.launches["flash_attn_stats"] == before["flash_attn_stats"] + 2
     assert kernels.launches["flash_attn"] == before["flash_attn"] + 1
-    assert torch.equal(o, o_eval)
-    o_p, lse_p = flash.attention_fwd_plain(q, k, v)
-    torch.testing.assert_close(o, o_p, atol=2e-5, rtol=0)
-    torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=0)
+    assert torch.equal(o, o_eval) and torch.equal(o, o_again) and torch.equal(lse, lse_again)
+    ref = (q, k, v) if spread == 1.0 else (q.double(), k.double(), v.double())
+    o_p, lse_p = flash.attention_fwd_plain(*ref)
+    torch.testing.assert_close(o.to(o_p.dtype), o_p, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse.to(lse_p.dtype), lse_p, atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_f32_forward_refuses_lengths_off_its_tiles(cuda):
+    """The f32 K3 takes Lq and Lk in multiples of 128 (576 is one of 64, which
+    the f32 K4 and K5 take): refused by the wrapper and the flash Function
+    before any launch, the split's included."""
+    q, k, v, _ = _qkv(cuda, 576, 512, 64)
+    before = dict(kernels.launches)
+    for stats in (False, True):
+        with pytest.raises(ValueError, match="% 128"):
+            flash._flash_kernel(q, k, v, stats=stats)
+        with pytest.raises(ValueError, match="% 128"):
+            flash._flash_kernel(k, q, q, stats=stats)  # Lq 512, Lk 576
+    with pytest.raises(ValueError, match="% 128"):
+        flash.flash_attention_train(q.requires_grad_(True), k, v)
+    assert kernels.launches == before
 
 
 @pytest.mark.cuda
@@ -339,10 +411,11 @@ def test_split_kernel_matches_plain(cuda, shape):
 @pytest.mark.cuda
 def test_training_attention_launches_k3_stats_k4_k5(cuda):
     """scaled_attention with a gradient recorded goes through the flash
-    Function: K3 with statistics forward, the split of q, k, v and dO, K5 and
-    K4 backward, and its
-    gradients agree with autograd through the naive math. Without a
-    gradient (evaluation) it launches K3 alone."""
+    Function: the split of q, k and v and K3 with statistics forward, the
+    split of dO, K5 and K4 backward (four split launches in all: the forward
+    saves the planes of q, k and v for the backward), and its gradients agree
+    with autograd through the naive math. Without a gradient (evaluation) it
+    launches the split of q, k and v and K3."""
     q, k, v, do = _qkv(cuda, 2048, 512, 64)
     ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = dict(kernels.launches)
@@ -360,6 +433,7 @@ def test_training_attention_launches_k3_stats_k4_k5(cuda):
         scaled_attention(q, k, v)
     assert kernels.launches["flash_attn"] == before["flash_attn"] + 1
     assert kernels.launches["flash_attn_stats"] == before["flash_attn_stats"] + 1
+    assert kernels.launches["split_bf16x3"] == before["split_bf16x3"] + 4 + 3
 
 
 @pytest.mark.cuda
