@@ -7,8 +7,11 @@ step in f32 and in bf16 mode, and the ``main_pcn`` entry point.
 Phases (any failure exits non-zero):
 1. build the hand-written kernels from ``svdformer_pointsea_tpu_torch/csrc``
    (one nvcc per source, in parallel);
-2. hold each f32 kernel against its plain PyTorch version on the card (B = 4):
-   K1 / K2 at the evaluation shapes plus FPS's quirk inputs; K3 at every
+2. hold each f32 kernel against its plain PyTorch version on the card: K1
+   and K2 at every training (B = 12) and evaluation (B = 8) site with their
+   launch plans, bit for bit and on a repeat, K1 on duplicated targets across
+   tile and split boundaries under 1-8 splits, K2 at B = 40, on a coarse
+   grid and on its quirk inputs under C = 1, 2, 4, 8; at B = 4, K3 at every
    attention site (and at dh 256) without and with its row statistics, q x 1
    and q x 8, against the naive forward in f32 and the plain forward in f64
    (O bit-equal with and without statistics and on a repeat); at every
@@ -30,6 +33,9 @@ Phases (any failure exits non-zero):
    128; the dynamic shared memory from each launcher's export) and their
    SASS (``HGMMA``, ``UTMALDG``); the same reports for the f32 K3, K4 and K5
    on the split planes (``flash_attn_split_fwd.cu``, ``flash_attn_split_bwd.cu``);
+   ptxas of K1 and K2 (no spill in any instance) and their SASS (no FFMA, which
+   would round otherwise than the plain versions; K2's REDUX, mbarrier and
+   cluster-barrier instructions);
 4. evaluation main path: ``eval_pcn`` on a full-width PCN SVDFormer (random
    weights from a seeded generator) over 3 synthetic batches of 8, with the
    launch counters zeroed just before and read just after; every kernel of
@@ -64,7 +70,9 @@ Phases (any failure exits non-zero):
 8. timing (CUDA events, kernels and plain ops in turns): eval completions/s
    at B = 8 and train ms/step and peak memory at B = 12, in f32 and in bf16
    mode; each kernel against its plain version and its bound (per training
-   batch of 12, and K3 per evaluation batch of 8; the attention kernels
+   batch of 12, and K3 per evaluation batch of 8; K1 and K2 per site, with
+   their plans, device times (CUDA graphs) and floors, K2 in µs a round; the
+   attention kernels
    beside ``scaled_dot_product_attention`` forward / backward as a
    yardstick: f32 on its memory-efficient backend, bf16 on its flash
    backend; the bf16 K3, K4 and K5 with their TFLOP/s, the floor their
@@ -75,7 +83,8 @@ Phases (any failure exits non-zero):
    SDPA's memory-efficient forward per training and per evaluation batch, and
    di + split + K5 + K4 beside SDPA's memory-efficient backward in device
    time); a profiler breakdown of both train steps and of an evaluation
-   batch in f32 and in bf16 mode by kernel family.
+   batch in f32 and in bf16 mode by kernel family (device kernels only, no
+   user annotation).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -202,6 +211,7 @@ SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
 # at a head dim.
 WGMMA_SOURCES = ("flash_attn_bf16_fwd", "flash_attn_bf16_bwd", "flash_attn_split_fwd",
                  "flash_attn_split_bwd")
+POINT_SOURCES = ("nn_distance", "fps")  # K1 and K2: CUDA-core kernels, bit-equal to plain
 SMEM_EXPORTS = {
     "wgmma_fwd_kernel": ("bf16", "flash_attn_bf16_fwd", "flash_attn_bf16_fwd_smem"),
     "bwd_dq_kernel": ("bf16", "flash_attn_bf16_bwd", "flash_attn_bf16_bwd_dq_smem"),
@@ -388,50 +398,112 @@ def first_moment_gap(torch, run, ref, check: bool, rtol: float = MU_RTOL, apart=
     return worst, worst_noise, worst_apart
 
 
-def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
-    """Kernel vs plain version at the evaluation and training shapes, B = 4.
-    Returns the max abs error per kernel."""
-    dev = "cuda"
-    err = {}
+def nn_phase(torch, ops, kernels, g) -> float:
+    """K1 against its plain version at every training site (B 12) and every
+    evaluation site (B 8): d and idx bit-equal, a repeat bit-equal, and the
+    distance at the chosen index within NN_TOL; then duplicated targets on
+    either side of a 256-point tile and of every split boundary, under the
+    plan's split and under 1, 2, 4 and 8 splits. Returns the max abs error."""
+    dev = torch.device("cuda")
+    sm = kernels.sm_count(dev)
+    worst = 0.0
+    for bs, sites in ((B_TRAIN, NN_TRAIN_SITES), (B_MAIN, NN_SITES)):
+        for n, m in sorted(set(sites)):
+            a = torch.rand(bs, n, 3, device=dev, generator=g) - 0.5
+            b = torch.rand(bs, m, 3, device=dev, generator=g) - 0.5
+            d, i = ops.nn_one_way(a, b)
+            d2, i2 = ops.nn_one_way(a, b)
+            torch.cuda.synchronize()
+            dp, ip = ops.nn_one_way_plain(a, b)
+            chosen = b.gather(1, i.long()[..., None].expand(-1, -1, 3))
+            d_at_idx = ((a - chosen) ** 2).sum(-1)
+            e = max((d - dp).abs().max().item(), (d_at_idx - dp).abs().max().item())
+            equal = torch.equal(d, dp) and torch.equal(i, ip)
+            repeat = torch.equal(d, d2) and torch.equal(i, i2)
+            print(f"K1 nn_distance B{bs} {n}->{m}, plan {tuple(ops.nn_launch_plan(bs, n, m, sm))}: "
+                  f"max|Δd| {e:.3e} (argmin checked by distance); d and idx bit-equal to the plain "
+                  f"version {equal}, on a repeat {repeat}")
+            if not (e <= NN_TOL and equal and repeat):
+                fail(f"nn_distance B{bs} {n}->{m} differs from its plain version or its repeat")
+            worst = max(worst, e)
+    for bs, n, m in ((B_TRAIN, 256, 256), (B_TRAIN, 2048, 2048), (B_MAIN, 512, 2048)):
+        a = torch.rand(bs, n, 3, device=dev, generator=g) - 0.5
+        b = torch.rand(bs, m, 3, device=dev, generator=g) - 0.5
+        cuts = {256} | {k * -(-m // s) for s in (2, 4, 8) for k in range(1, s)}
+        cuts = sorted(j for j in cuts if 0 < j < m)
+        for k, j in enumerate(cuts):
+            b[:, j] = b[:, j - 1]
+            a[:, 2 * k] = b[:, j - 1]  # distance 0 to both
+            a[:, 2 * k + 1] = b[:, j - 1] + 1e-4  # the same distance to both
+        dp, ip = ops.nn_one_way_plain(a, b)
+        same = []
+        for splits in (None, 1, 2, 4, 8):
+            plan = ops.nn_launch_plan(bs, n, m, sm, splits=splits)
+            d, i = ops.distances._nn_one_way_kernel(a, b, plan)
+            same.append(torch.equal(d, dp) and torch.equal(i, ip))
+        print(f"K1 tie B{bs} {n}->{m}: targets duplicated across {len(cuts)} tile and split "
+              f"boundaries; d and idx bit-equal to the plain version under the plan's split and "
+              f"under 1, 2, 4, 8 splits: {same}")
+        if not all(same):
+            fail(f"nn_distance ties at B{bs} {n}->{m} resolve otherwise than the plain version")
+    return worst
 
-    err["nn_distance"] = 0.0
-    for n, m in sorted(set(NN_SITES)):
-        a = torch.rand(4, n, 3, device=dev, generator=g) - 0.5
-        b = torch.rand(4, m, 3, device=dev, generator=g) - 0.5
-        d, i = ops.nn_one_way(a, b)
-        torch.cuda.synchronize()
-        dp, _ = ops.nn_one_way_plain(a, b)
-        chosen = b.gather(1, i.long()[..., None].expand(-1, -1, 3))
-        d_at_idx = ((a - chosen) ** 2).sum(-1)
-        e = max((d - dp).abs().max().item(), (d_at_idx - dp).abs().max().item())
-        print(f"K1 nn_distance {n}->{m}: max|Δd| {e:.3e} (argmin checked by distance)")
-        if not e <= NN_TOL:
-            fail(f"nn_distance {n}->{m} differs by {e}")
-        err["nn_distance"] = max(err["nn_distance"], e)
 
-    fps_cases = []
-    for n, m in [(2048, 512), (2304, 512), (512, 128), (16384, 2048), (2048, 256)]:
-        fps_cases.append((f"{n}->{m}", torch.rand(4, n, 3, device=dev, generator=g) - 0.5, m))
+def fps_phase(torch, ops, kernels, g) -> float:
+    """K2 against its plain version at every training site (B 12, 16384 ->
+    2048 included) and every evaluation site (B 8), with a repeat; at B 40
+    (more clusters than the card holds at once); on the quirk case (points
+    near the origin never picked, an all-invalid row, duplicated points, a
+    coarse grid of many equal distances) under C = 1, 2, 4, 8; and on a
+    coarse grid at (16384, 2048), B 12. Returns the max index difference."""
+    dev = torch.device("cuda")
+    sm = kernels.sm_count(dev)
     quirk = torch.rand(4, 2048, 3, device=dev, generator=g) + 0.5
     quirk[0, 10:400] = 0.0  # near-origin points are never picked
     quirk[0, 400:410] = 0.01
     quirk[1] = 0.0  # all-invalid row: every pick falls back to 0
     quirk[2, 1000:] = quirk[2, :1048].clone()  # duplicated points: ties
     quirk[3] = torch.round(quirk[3] * 4) / 4  # a coarse grid: many equal distances
-    fps_cases.append(("quirks 2048->512", quirk, 512))
-    err["fps"] = 0.0
-    for name, x, m in fps_cases:
-        i = ops.furthest_point_sample(x, m)
+    grid = torch.round((torch.rand(B_TRAIN, 16384, 3, device=dev, generator=g) - 0.5) * 8) / 8
+    cases = []
+    for bs, sites in ((B_TRAIN, FPS_TRAIN_SITES), (B_MAIN, FPS_SITES)):
+        for n, m in sorted(set(sites)):
+            cases.append((f"B{bs} {n}->{m}", torch.rand(bs, n, 3, device=dev, generator=g) - 0.5, m,
+                          None))
+    wave = torch.rand(40, 16384, 3, device=dev, generator=g) - 0.5
+    cases += [("B40 16384->512", wave, 512, None), ("B40 16384->512, C 8", wave, 512, 8),
+              ("grid B12 16384->2048", grid, 2048, None)]
+    cases += [(f"quirks B4 2048->512, C {c}", quirk, 512, c) for c in (1, 2, 4, 8)]
+    worst = 0.0
+    for name, x, m, cluster in cases:
+        plan = ops.fps_launch_plan(x.shape[0], x.shape[1], m, sm, cluster=cluster)
+        i = ops.fps._fps_kernel(x, m, plan)
+        again = ops.fps._fps_kernel(x, m, plan)
         torch.cuda.synchronize()
         ip = ops.furthest_point_sample_ref(x, m)
         bad = int((i != ip).sum().item())
-        print(f"K2 fps {name}: {bad} index mismatches")
-        if bad:
-            fail(f"fps {name}: {bad} indices differ")
-        err["fps"] = max(err["fps"], float((i - ip).abs().max().item()))
+        repeat = torch.equal(i, again)
+        print(f"K2 fps {name}, plan {tuple(plan)}: {bad} index mismatches; repeat bit-equal {repeat}")
+        if bad or not repeat:
+            fail(f"fps {name}: {bad} indices differ from the plain version, repeat {repeat}")
+        worst = max(worst, float((i - ip).abs().max().item()))
+        if name.startswith("quirks"):
+            if bool((i[0, 1:, None] == torch.arange(10, 410, device=dev)).any()) or bool(i[1].any()):
+                fail("fps quirk semantics (origin skip / all-invalid fallback) broken")
     picked = ops.furthest_point_sample(quirk, 512)
-    if bool((picked[0, 1:, None] == torch.arange(10, 410, device=dev)).any()) or bool(picked[1].any()):
-        fail("fps quirk semantics (origin skip / all-invalid fallback) broken")
+    if not torch.equal(picked, ops.furthest_point_sample_ref(quirk, 512)):
+        fail("fps through its wrapper differs on the quirk case")
+    return worst
+
+
+def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
+    """Kernel vs plain version: K1 and K2 at the training and evaluation
+    shapes (``nn_phase``, ``fps_phase``), the f32 flash kernels at B = 4.
+    Returns the max abs error per kernel."""
+    from svdformer_pointsea_tpu_torch import kernels
+
+    dev = "cuda"
+    err = {"nn_distance": nn_phase(torch, ops, kernels, g), "fps": fps_phase(torch, ops, kernels, g)}
 
     # K3 without and with statistics (the split of q, k and v included) at
     # every site and at dh 256 with q x 1, at every site with q x SPREAD: O
@@ -534,10 +606,11 @@ def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
 
 
 def ptxas_report_start(kernels, tmp: str):
-    """Start ``nvcc -Xptxas -v`` on the wgmma flash sources (compile only) in
-    the background; ``ptxas_report_print`` reads them."""
+    """Start ``nvcc -Xptxas -v`` on the wgmma flash sources and on K1's and
+    K2's (compile only) in the background; ``ptxas_report_print`` and
+    ``points_report`` read them."""
     procs = {}
-    for src in WGMMA_SOURCES:
+    for src in WGMMA_SOURCES + POINT_SOURCES:
         cmd = [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, f"{src}.o"),
                str(kernels.CSRC / f"{src}.cu")]
@@ -555,7 +628,8 @@ def ptxas_report_print(kernels, procs) -> None:
     import ctypes
 
     pattern = "|".join(sorted(SMEM_EXPORTS, key=len, reverse=True))  # the longest name first
-    for src, proc in procs.items():
+    for src in WGMMA_SOURCES:
+        proc = procs[src]
         out, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
             fail(f"nvcc -Xptxas -v failed for {src}.cu:\n{out}")
@@ -603,6 +677,54 @@ def sass_report(kernels) -> None:
               + ", ".join(f"{op} {n}" for op, n in counts.items()))
         if not (counts["HGMMA"] and counts["UTMALDG"]):
             fail(f"the SASS of {src}.cu holds no HGMMA or no UTMALDG")
+
+
+def points_report(kernels, procs) -> None:
+    """ptxas's registers and spills for every instance of K1 and K2, and the
+    SASS of both libraries: fails on a spill, or on an FFMA (a contracted
+    multiply-add would round otherwise than the plain versions); prints K2's
+    REDUX (warp reductions), SYNCS (mbarrier) and cluster-barrier
+    instructions."""
+    import shutil
+
+    for src in POINT_SOURCES:
+        out, _ = procs[src].communicate(timeout=600)
+        if procs[src].returncode != 0:
+            fail(f"nvcc -Xptxas -v failed for {src}.cu:\n{out}")
+        name, lines = None, []
+        for line in out.splitlines():
+            m = re.search(r"(fps_kernel|nn_one_way_kernel)I(\w+?)EEv", line)
+            if m and "Compiling entry" in line:
+                args = re.findall(r"L([bi])(\d+)E", m.group(2) + "E")
+                name = f"{m.group(1)}<{', '.join(v if t == 'i' else ('true', 'false')[v == '0'] for t, v in args)}>"
+            elif name and "spill" in line:
+                spills = re.search(r"(\d+) bytes spill stores", line).group(1)
+            elif name and "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                lines.append(f"{name} {regs}")
+                if spills != "0":
+                    fail(f"{src}.cu: {name} spills ({line.strip()})")
+                name = None
+        print(f"ptxas {src}.cu, registers per instance, no spill: " + "; ".join(lines))
+    tool = Path(kernels._nvcc()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        fail("no cuobjdump: the FFMA count of K1 and K2 cannot be read")
+    for src in POINT_SOURCES:
+        sass = subprocess.run([tool, "-sass", str(kernels._lib_path(src))], capture_output=True,
+                              text=True, check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass))
+                  for op in ("FFMA", "FADD", "FMUL", "REDUX", "SYNCS")}
+        barriers = {op: len(re.findall(rf"\b{op}\b", sass))
+                    for op in sorted(set(re.findall(r"\b(\w*CGA\w*)\b", sass)))}
+        text = ", ".join(f"{op} {n}" for op, n in counts.items())
+        if src == "fps":
+            text += ", cluster barrier " + ", ".join(f"{op} {n}" for op, n in barriers.items())
+        print(f"SASS of {src}.cu: {text}")
+        if counts["FFMA"]:
+            fail(f"the SASS of {src}.cu holds {counts['FFMA']} FFMA: a contraction breaks bit equality")
+        if src == "fps" and not (counts["REDUX"] and counts["SYNCS"] and barriers):
+            fail("the SASS of fps.cu holds no REDUX, no mbarrier (SYNCS) or no cluster barrier")
 
 
 def rel_err(got, want) -> float:
@@ -1168,29 +1290,61 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
         return k_ms, p_ms
 
     # K1 and K2: per training batch of 12 (the step's sites) for the report,
-    # and per evaluation batch of 8 printed beside it.
+    # and per evaluation batch of 8 printed beside it; each site with its
+    # launch plan, the kernel's device time (CUDA graph) and its floors. K1:
+    # the FP32 issue floor, 8 unfused instructions a pair at 128 a clock per
+    # SM (11 with the compare and two selects of the running argmin). K2: a
+    # round's floor on one SM (12 B a point at 128 B a clock) and on the
+    # plan's C SMs (N / C points x 8 FP32 instructions at 128 a clock).
+    clock_hz = clock_mhz * 1e6
+    sm = kernels.sm_count(torch.device(dev))
+    out["nn_distance"]["device_ms"] = 0.0
+    out["fps"]["device_ms"] = 0.0
     for bs, nn_sites, fps_sites, per in ((B_MAIN, NN_SITES, FPS_SITES, "eval"),
                                          (B_TRAIN, NN_TRAIN_SITES, FPS_TRAIN_SITES, "train")):
-        sums = {"nn_distance": [0.0, 0.0], "fps": [0.0, 0.0]}
+        sums = {name: {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "floor_ms": 0.0}
+                for name in ("nn_distance", "fps")}
         for n, m in nn_sites:
             a = torch.rand(bs, n, 3, device=dev, generator=g) - 0.5
             b = torch.rand(bs, m, 3, device=dev, generator=g) - 0.5
             k_ms, p_ms = both(lambda: ops.nn_one_way(a, b), 10)
-            sums["nn_distance"][0] += k_ms
-            sums["nn_distance"][1] += p_ms
-            if per == "train":  # 3 sub, 3 mul, 2 add, 1 compare a pair; clouds in, d, idx out
-                add("nn_distance", k_ms, p_ms, 9 * bs * n * m, 12 * bs * (n + m) + 8 * bs * n)
-            print(f"time K1 nn_distance B{bs} {n}->{m}: {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            dev_ms = graph_ms(lambda: ops.nn_one_way(a, b), reps=3 if n == 16384 else 10, replays=3)
+            floor = 1e3 * bs * n * m * 8 / (128 * sm * clock_hz)
+            ops_, bytes_ = 9 * bs * n * m, 12 * bs * (n + m) + 8 * bs * n  # clouds in, d, idx out
+            for key, v in zip(("ms", "plain_ms", "device_ms", "floor_ms"), (k_ms, p_ms, dev_ms, floor)):
+                sums["nn_distance"][key] += v
+            if per == "train":  # 3 sub, 3 mul, 2 add, 1 compare a pair
+                add("nn_distance", k_ms, p_ms, ops_, bytes_)
+                out["nn_distance"]["device_ms"] += dev_ms
+            print(f"time K1 nn_distance B{bs} {n}->{m}, plan "
+                  f"{tuple(ops.nn_launch_plan(bs, n, m, sm))}: {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+                  f"device (CUDA graph) {dev_ms:.4f} ms; FP32 issue floor {floor:.4f} ms "
+                  f"({100 * floor / dev_ms:.1f} %; {11 * floor / 8:.4f} ms at 11 a pair, "
+                  f"{1100 * floor / 8 / dev_ms:.1f} %), flop bound "
+                  f"{bound_ms(ops_, bytes_):.4f} ms")
         for n, m in fps_sites:
             x = torch.rand(bs, n, 3, device=dev, generator=g) - 0.5
             k_ms, p_ms = both(lambda: ops.furthest_point_sample(x, m), 10 if n < 16384 else 4)
-            sums["fps"][0] += k_ms
-            sums["fps"][1] += p_ms
+            dev_ms = graph_ms(lambda: ops.furthest_point_sample(x, m), reps=2 if n == 16384 else 5,
+                              replays=3)
+            plan = ops.fps_launch_plan(bs, n, m, sm)
+            one_sm = 1e3 * (m - 1) * n * 12 / 128 / clock_hz
+            floor = 1e3 * (m - 1) * -(-n // plan.cluster) * 8 / 128 / clock_hz
+            for key, v in zip(("ms", "plain_ms", "device_ms", "floor_ms"), (k_ms, p_ms, dev_ms, floor)):
+                sums["fps"][key] += v
             if per == "train":  # per round and point: 8 for the distance, 1 min, 1 argmax compare
                 add("fps", k_ms, p_ms, 10 * bs * n * m, 12 * bs * n + 4 * bs * m)
-            print(f"time K2 fps B{bs} {n}->{m}: {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        for name, (k_ms, p_ms) in sums.items():
-            print(f"time {name} per {per} batch of {bs}: {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                out["fps"]["device_ms"] += dev_ms
+            print(f"time K2 fps B{bs} {n}->{m}, plan {tuple(plan)}: {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms; device (CUDA graph) {dev_ms:.4f} ms, "
+                  f"{1e3 * dev_ms / (m - 1):.3f} µs a round; floors: one SM {one_sm:.4f} ms "
+                  f"({1e3 * one_sm / (m - 1):.3f} µs a round), the plan's C SMs {floor:.4f} ms "
+                  f"({1e3 * floor / (m - 1):.3f} µs a round)")
+        for name, r in sums.items():
+            print(f"time {name} per {per} batch of {bs}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                  f"ms; device (CUDA graph) {r['device_ms']:.4f} ms, floor {r['floor_ms']:.4f} ms "
+                  f"({100 * r['floor_ms'] / r['device_ms']:.1f} %; K1: the FP32 issue floor at 8 a "
+                  "pair, K2: the plan's C SMs)")
 
     for sfx, dtype, backend in (("", torch.float32, SDPBackend.EFFICIENT_ATTENTION),
                                 ("_bf16", torch.bfloat16, SDPBackend.FLASH_ATTENTION)):
@@ -1364,7 +1518,10 @@ def kernel_profile(torch, fn: Callable[[], object], label: str = "train") -> Non
     fam: Dict[str, float] = {}
     top = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # device kernels only, no CPU op
+        # Device kernels only: no CPU op, and no user annotation (such as
+        # "Optimizer.step#Adam.step"), whose device span covers the kernels
+        # it brackets and the gaps between them.
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
             continue
         dev_us = ev.self_device_time_total
         family = next((f for f, pat in PROFILE_FAMILIES if re.search(pat, ev.key, re.I)),
@@ -1415,6 +1572,7 @@ def main() -> int:
     max_err = kernel_phase(torch, ops, flash, g)
     max_err.update(bf16_kernel_phase(torch, kernels, flash, g))
     ptxas_report_print(kernels, ptxas)
+    points_report(kernels, ptxas)
     scratch.cleanup()
     sass_report(kernels)
 
@@ -1507,7 +1665,7 @@ def main() -> int:
             report["kernels"][-1].update({key: round(t[key], 4) for key in
                                           ("device_ms", "wrapper_device_ms", "library_device_ms")
                                           if key in t})
-        elif "device_ms" in t:  # the split pass: no library call
+        elif "device_ms" in t:  # K1, K2 and the split pass: no library call
             report["kernels"][-1]["device_ms"] = round(t["device_ms"], 4)
     for row in report["kernels"]:
         if not all(math.isfinite(row[k]) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")):

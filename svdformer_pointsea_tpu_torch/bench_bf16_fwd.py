@@ -60,7 +60,7 @@ def build_other(other: Path) -> ctypes.CDLL:
     """Compile ``other`` with the port's nvcc flags into the build directory
     while the port's own kernels build, and load it; raises if nvcc fails."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = kernels.BUILD_DIR / f"libother-{os.getpid()}.so"
+    so = kernels.BUILD_DIR / f"libother-{other.stem}-{os.getpid()}.so"
     proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
                              str(other.resolve())], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

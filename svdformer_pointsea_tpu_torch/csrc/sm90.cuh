@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels on the tensor
 // cores (flash_attn_bf16_fwd.cu: the bf16 K3; flash_attn_bf16_bwd.cu: the
 // bf16 K4 and K5; flash_attn_split_fwd.cu and flash_attn_split_bwd.cu: the
-// f32 K3, K4 and K5 on split bf16 planes, through split.cuh): mbarrier, TMA
-// and bulk copies, wgmma and its shared-memory descriptors over tiles of
+// f32 K3, K4 and K5 on split bf16 planes, through split.cuh): TMA and bulk
+// copies (on the mbarriers of cluster.cuh), wgmma and its shared-memory
+// descriptors over tiles of
 // swizzle atoms, the forward's online softmax, the backward's dS from the scores,
 // and the 4-D tensor maps over the port's channels-last (B, L, H, D) layout. Everything has internal linkage: each source that
 // includes it is built into a library of its own.
@@ -21,6 +22,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "cluster.cuh"  // smem_u32 and the mbarrier helpers
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -34,37 +37,6 @@ struct Atom {
 };
 
 // ------------------------------------------------------------ PTX helpers --
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int c0, int c1, int c2, int c3) {
   asm volatile(

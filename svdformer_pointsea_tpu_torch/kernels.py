@@ -8,9 +8,12 @@ the f32 K4 and K5 and the split pass that feeds them; ``flash_attn_bf16_bwd.cu``
 the bf16 K4 and K5) or serve two kernel names (``flash_attn_split_fwd.cu`` and
 ``flash_attn_bf16_fwd.cu``: K3 without and with its row statistics), each with
 its own launch counter. The tensor-core sources include ``csrc/sm90.cuh`` (the
-f32 ones through ``csrc/split.cuh``); a library's name hashes its source, the
-headers and the flags. Nothing is compiled or loaded at import time, so the
-package imports on a machine without a GPU or a CUDA toolkit.
+f32 ones through ``csrc/split.cuh``), and K1 and K2 (``nn_distance.cu``,
+``fps.cu``) the mbarrier and thread-block-cluster helpers of
+``csrc/cluster.cuh``, which ``sm90.cuh`` includes too; a library's name
+hashes its source, the headers and the flags. Nothing is compiled or loaded
+at import time, so the package imports on a machine without a GPU or a CUDA
+toolkit.
 
 Every wrapper in ``ops/`` and ``nn/`` decides its path the same way
 (:func:`use_kernel`): a CPU tensor takes the plain PyTorch version, a CUDA
@@ -50,8 +53,11 @@ _L = ctypes.c_longlong
 # kernel name -> (source csrc/<source>.cu, C entry point, argtypes). A source
 # may serve several names: the name is what the launch counters count.
 _ENTRY = {
-    "nn_distance": ("nn_distance", "nn_one_way_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "fps": ("fps", "fps_launch", [_P, _P, _I, _I, _I, _P]),
+    # K1 and K2 take their launch plans (ops/distances.py::nn_launch_plan,
+    # ops/fps.py::fps_launch_plan) as their last integer arguments.
+    "nn_distance": ("nn_distance", "nn_one_way_launch",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "fps": ("fps", "fps_launch", [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # The f32 K3 without and with the row statistics (one kernel, lse null or
     # not), K4 and K5, all on the bf16 tensor cores, on the three bf16 planes
     # (hi, mid, lo) of q, k, v and dO that the split pass makes.
@@ -83,6 +89,7 @@ launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 _libs: Dict[str, ctypes.CDLL] = {}  # source -> loaded library
 _lock = threading.Lock()
 _plain_forced = False
+_sm_counts: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
@@ -174,6 +181,15 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     launches[name] += 1
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` (the launch plans of
+    K1 and K2 size their grids by it)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
 
 
 def check_cuda_input(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

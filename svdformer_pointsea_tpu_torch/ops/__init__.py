@@ -3,6 +3,7 @@ on CUDA tensors and its plain PyTorch version on CPU tensors."""
 
 from svdformer_pointsea_tpu_torch.ops.distances import (
     chamfer_distance,
+    nn_launch_plan,
     nn_one_way,
     nn_one_way_plain,
     nn_squared_distance,
@@ -10,6 +11,7 @@ from svdformer_pointsea_tpu_torch.ops.distances import (
     square_distance,
 )
 from svdformer_pointsea_tpu_torch.ops.fps import (
+    fps_launch_plan,
     fps_subsample,
     furthest_point_sample,
     furthest_point_sample_ref,
@@ -26,11 +28,13 @@ from svdformer_pointsea_tpu_torch.ops.metrics import density_aware_chamfer, fsco
 
 __all__ = [
     "chamfer_distance",
+    "nn_launch_plan",
     "nn_one_way",
     "nn_one_way_plain",
     "nn_squared_distance",
     "query_knn",
     "square_distance",
+    "fps_launch_plan",
     "fps_subsample",
     "furthest_point_sample",
     "furthest_point_sample_ref",

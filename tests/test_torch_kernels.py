@@ -24,6 +24,25 @@ from svdformer_pointsea_tpu_torch.ops import (
     nn_one_way_plain,
     nn_squared_distance,
 )
+from svdformer_pointsea_tpu_torch.ops.distances import (
+    NnPlan,
+    _nn_one_way_kernel,
+    check_nn_plan,
+    nn_launch_plan,
+    split_ranges,
+)
+from svdformer_pointsea_tpu_torch.ops.fps import (
+    FpsPlan,
+    _fps_kernel,
+    check_fps_plan,
+    fps_launch_plan,
+)
+
+# (N, npoint) of K2 and (N, M) of K1 on the main paths (training at B 12,
+# evaluation at B 8), and the H100's SM count.
+FPS_SITES = [(2048, 512), (512, 128), (2304, 512), (16384, 2048), (2048, 256)]
+NN_SITES = [(512, 2048), (2048, 2048), (256, 256), (16384, 16384)]
+H100_SMS = 132
 
 
 @pytest.fixture
@@ -223,29 +242,171 @@ def test_f32_backward_is_bound_to_the_split_source():
     assert not (kernels.CSRC / "flash_attn_bwd.cu").exists()
 
 
+@pytest.mark.parametrize("batch", [8, 12, 40])
+def test_fps_launch_plan_rules(batch):
+    """Every plan is one that fps_launch takes; at B 8 and B 12 all clusters
+    fit the card at once (B x C <= SMs); C = 1 is valid at every site up to
+    the 8192 points a CTA holds and refused above, where C = 2 is valid; the
+    16384-point site runs on a cluster of more than one CTA at any batch."""
+    for n, m in FPS_SITES + [(1, 1), (3, 2), (700, 100), (8192, 64), (16384, 64)]:
+        plan = fps_launch_plan(batch, n, m, H100_SMS)
+        check_fps_plan(n, plan)
+        if batch <= 12:
+            assert batch * plan.cluster <= H100_SMS
+        if n <= 8192:
+            one = fps_launch_plan(batch, n, m, H100_SMS, cluster=1)
+            check_fps_plan(n, one)
+            assert one.cluster == 1
+        else:
+            with pytest.raises(ValueError):
+                fps_launch_plan(batch, n, m, H100_SMS, cluster=1)
+        for c in (2, 4, 8, 16):
+            check_fps_plan(n, fps_launch_plan(batch, n, m, H100_SMS, cluster=c))
+    assert fps_launch_plan(batch, 16384, 2048, H100_SMS).cluster > 1
+    assert fps_launch_plan(10 * batch, 16384, 2048, H100_SMS).cluster == 2  # in waves
+
+
+@pytest.mark.parametrize("n,plan", [
+    (2048, FpsPlan(3, 128, 16)),     # no such cluster size
+    (2048, FpsPlan(1, 256, 8)),      # no such instance
+    (2048, FpsPlan(1, 200, 16)),     # not whole warps
+    (2048, FpsPlan(1, 96, 16)),      # points left over
+    (16384, FpsPlan(1, 1024, 16)),   # one CTA on 16384 points: above 512 threads
+    (2048, FpsPlan(1, 2048, 4)),     # more threads than a CTA has
+    (20, FpsPlan(16, 32, 4)),        # CTAs that own no point
+    (20000, FpsPlan(16, 128, 16)),   # a cloud beyond a CTA's shared memory
+])
+def test_fps_plan_check_refuses_what_the_kernel_refuses(n, plan):
+    with pytest.raises(ValueError):
+        check_fps_plan(n, plan)
+
+
+@pytest.mark.parametrize("batch", [8, 12, 40])
+def test_nn_launch_plan_rules(batch):
+    """Every plan is one that nn_one_way_launch takes; S = 1 is valid at every
+    site; the split ranges are contiguous, increasing, non-empty and cover
+    [0, M) exactly; the small main-path sites split the targets."""
+    for n, m in NN_SITES + [(1000, 333), (5, 3), (1, 1), (300, 70)]:
+        for plan in (nn_launch_plan(batch, n, m, H100_SMS),
+                     nn_launch_plan(batch, n, m, H100_SMS, splits=1)):
+            check_nn_plan(m, plan)
+            ranges = split_ranges(m, plan)
+            assert len(ranges) == plan.splits and ranges[0][0] == 0 and ranges[-1][1] == m
+            assert all(lo < hi for lo, hi in ranges)
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert nn_launch_plan(batch, n, m, H100_SMS, splits=1).splits == 1
+    if batch <= 12:
+        assert all(nn_launch_plan(batch, n, m, H100_SMS).splits > 1
+                   for n, m in NN_SITES if n < 16384)
+
+
+@pytest.mark.parametrize("m,plan", [
+    (2048, NnPlan(128, 8, 1, 2048, 0)),     # no such instance
+    (2048, NnPlan(96 + 1, 2, 1, 2048, 0)),  # not whole warps
+    (2048, NnPlan(512, 2, 1, 2048, 0)),     # above the kernel's threads
+    (2048, NnPlan(128, 2, 16, 128, 0)),     # more splits than a cluster takes
+    (2048, NnPlan(128, 2, 2, 1000, 0)),     # targets left over
+    (2048, NnPlan(128, 2, 8, 1024, 0)),     # empty ranges
+    (2048, NnPlan(128, 2, 1, 2048, 1)),     # no such vote
+])
+def test_nn_plan_check_refuses_what_the_kernel_refuses(m, plan):
+    with pytest.raises(ValueError):
+        check_nn_plan(m, plan)
+
+
+def test_k1_and_k2_are_bound_to_their_sources():
+    """K1 and K2 are the kernels of nn_distance.cu and fps.cu, which include
+    the cluster helpers of cluster.cuh; their C entry points take the launch
+    plan after the shapes (five integers for K1, three for K2)."""
+    nn_src, nn_fn, nn_args = kernels._ENTRY["nn_distance"]
+    fps_src, fps_fn, fps_args = kernels._ENTRY["fps"]
+    assert (nn_src, nn_fn, len(nn_args)) == ("nn_distance", "nn_one_way_launch", 13)
+    assert (fps_src, fps_fn, len(fps_args)) == ("fps", "fps_launch", 9)
+    for src, fn in ((nn_src, nn_fn), (fps_src, fps_fn)):
+        text = (kernels.CSRC / f"{src}.cu").read_text()
+        assert f'extern "C" int {fn}(' in text and '#include "cluster.cuh"' in text
+    assert (kernels.CSRC / "cluster.cuh").is_file()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(512, 2048), (2048, 2048), (1000, 333)])
-def test_nn_distance_kernel_matches_plain(cuda, n, m):
-    a = torch.rand(2, n, 3, device="cuda", generator=cuda) - 0.5
-    b = torch.rand(2, m, 3, device="cuda", generator=cuda) - 0.5
+@pytest.mark.parametrize("batch,n,m", [
+    pytest.param(2, 512, 2048, id="512-2048"), pytest.param(2, 2048, 2048, id="2048-2048"),
+    pytest.param(2, 1000, 333, id="1000-333"), pytest.param(12, 256, 256, id="B12-256-256"),
+    pytest.param(12, 512, 2048, id="B12-512-2048"), pytest.param(8, 2048, 2048, id="B8-2048-2048"),
+    pytest.param(40, 2048, 2048, id="B40-2048-2048"),  # more CTAs than one wave
+])
+def test_nn_distance_kernel_matches_plain(cuda, batch, n, m):
+    """K1 with its launch plan equals the plain version bit for bit (d and
+    idx), and a repeat gives the same bits."""
+    a = torch.rand(batch, n, 3, device="cuda", generator=cuda) - 0.5
+    b = torch.rand(batch, m, 3, device="cuda", generator=cuda) - 0.5
     before = kernels.launches["nn_distance"]
     d, i = nn_one_way(a, b)
+    d2, i2 = nn_one_way(a, b)
     torch.cuda.synchronize()
-    assert kernels.launches["nn_distance"] == before + 1
+    assert kernels.launches["nn_distance"] == before + 2
     dp, ip = nn_one_way_plain(a, b)
     assert torch.equal(d, dp) and torch.equal(i, ip)  # same rounding, same ties
+    assert torch.equal(d, d2) and torch.equal(i, i2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(2048, 512), (2304, 512), (512, 128), (700, 100), (16384, 64)])
-def test_fps_kernel_matches_plain(cuda, n, m):
-    x = torch.rand(3, n, 3, device="cuda", generator=cuda) - 0.5
+@pytest.mark.parametrize("m", [256, 2048, 2304])
+def test_nn_distance_kernel_keeps_the_lowest_index_across_tiles_and_splits(cuda, m):
+    """Equal targets on either side of a 256-point tile and of every split
+    boundary: every query count and split count, with and without votes,
+    keeps the lowest index, as the plain version does."""
+    a = torch.rand(3, 512, 3, device="cuda", generator=cuda) - 0.5
+    b = torch.rand(3, m, 3, device="cuda", generator=cuda) - 0.5
+    dups = sorted({j for s in (2, 4, 8) for j in range(-(-m // s), m, -(-m // s))} | {256})
+    for k, j in enumerate(d for d in dups if 0 < d < m):
+        b[:, j] = b[:, j - 1]
+        a[:, 2 * k] = b[:, j - 1]  # distance 0 to both
+        a[:, 2 * k + 1] = b[:, j - 1] + 1e-4  # the same distance to both
+    dp, ip = nn_one_way_plain(a, b)
+    for q in (2, 4):
+        for splits in (1, 2, 4, 8):
+            for vote in (0, 4):
+                plan = NnPlan(128, q, splits, -(-m // splits), vote)
+                d, i = _nn_one_way_kernel(a, b, plan)
+                assert torch.equal(d, dp) and torch.equal(i, ip), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,m", [
+    pytest.param(3, 2048, 512, id="2048-512"), pytest.param(3, 2304, 512, id="2304-512"),
+    pytest.param(3, 512, 128, id="512-128"), pytest.param(3, 700, 100, id="700-100"),
+    pytest.param(3, 16384, 64, id="16384-64"), pytest.param(12, 16384, 2048, id="B12-16384-2048"),
+    pytest.param(40, 16384, 256, id="B40-16384-256"),  # more clusters than one wave
+])
+def test_fps_kernel_matches_plain(cuda, batch, n, m):
+    """K2 with its launch plan picks the plain version's indices, with an
+    all-invalid row and duplicated points (ties) among the rows, and a repeat
+    gives the same indices."""
+    x = torch.rand(batch, n, 3, device="cuda", generator=cuda) - 0.5
     x[1] = 0.0  # all-invalid row
     x[2, 1:n // 2] = x[2, n // 2 + 1:n // 2 * 2]  # ties
+    before = kernels.launches["fps"]
     got = furthest_point_sample(x, m)
+    again = furthest_point_sample(x, m)
     torch.cuda.synchronize()
+    assert kernels.launches["fps"] == before + 2
     assert torch.equal(got, furthest_point_sample_ref(x, m))
+    assert torch.equal(got, again)
     assert not got[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_fps_kernel_clusters_match_plain(cuda, cluster):
+    """Every cluster size picks the plain version's indices at 2048 and 16384
+    points (there at least 2 CTAs), on random points and on a coarse grid
+    (many equal distances)."""
+    for n, m in ((2048, 512), (16384, 256)):
+        x = torch.rand(4, n, 3, device="cuda", generator=cuda) - 0.5
+        x[2:] = torch.round(x[2:] * 4) / 4
+        plan = fps_launch_plan(4, n, m, H100_SMS, cluster=max(cluster, 2) if n > 8192 else cluster)
+        assert torch.equal(_fps_kernel(x, m, plan), furthest_point_sample_ref(x, m)), plan
 
 
 # The f32 K3's cases: q x 8 (a large spread of scores, the running max moving

@@ -90,6 +90,30 @@ def test_nn_one_way_matches_pallas_interpret(rng):
     _check_nn(a, b, d.numpy(), idx.numpy(), np.asarray(d_p))
 
 
+def test_nn_one_way_tie_across_a_tile_matches_pallas_interpret(rng):
+    """Equal targets on either side of a 1,024-point tile (and of the port
+    kernel's 256-point tiles and the Pallas kernel's 2,048-point one): the
+    plain version and the Pallas kernel in interpret mode both keep the lower
+    index, at distance 0 and at a distance above 0. This is the tie rule that
+    K1 is held to on the card."""
+    a = rng.rand(2, 16, 3).astype(np.float32)
+    b = rng.rand(2, 2304, 3).astype(np.float32)
+    pairs = [(1023, 1024), (255, 256), (2047, 2048), (511, 1537)]
+    for q, (lo, hi) in enumerate(pairs):
+        b[:, hi] = b[:, lo]
+        a[:, q] = b[:, lo]  # distance 0 to both
+        a[:, q + len(pairs)] = b[:, lo] + np.float32(1e-4)  # the same distance to both
+    d, idx = ops.nn_one_way_plain(t(a), t(b))
+    with pltpu.force_tpu_interpret_mode():
+        d_p, idx_p = nn_one_way_pallas(jnp.asarray(a), jnp.asarray(b))
+    want = np.array([lo for lo, _ in pairs] * 2)
+    ties = slice(0, 2 * len(pairs))
+    np.testing.assert_array_equal(idx.numpy()[:, ties], np.broadcast_to(want, (2, len(want))))
+    np.testing.assert_array_equal(np.asarray(idx_p)[:, ties], idx.numpy()[:, ties])
+    assert not d.numpy()[:, :len(pairs)].any()
+    _check_nn(a, b, d.numpy(), idx.numpy(), np.asarray(d_p))
+
+
 @pytest.mark.parametrize("n,m", [(256, 256), (300, 1000), (1024, 257)])
 def test_nn_one_way_matches_jax(rng, n, m):
     a = rng.rand(2, n, 3).astype(np.float32)
