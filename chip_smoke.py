@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's PCN paths on one CUDA card: evaluation, the train
-step in f32 and in bf16 mode, and the ``main_pcn`` entry point.
+"""Drive the PyTorch port's PCN and ShapeNet-55 paths on one CUDA card:
+evaluation, the train steps in f32 and in bf16 mode, the adversarial 55 step,
+and the ``main_pcn`` / ``main_55`` entry points.
 
     python3 chip_smoke.py
 
@@ -84,7 +85,16 @@ Phases (any failure exits non-zero):
    di + split + K5 + K4 beside SDPA's memory-efficient backward in device
    time); a profiler breakdown of both train steps and of an evaluation
    batch in f32 and in bf16 mode by kernel family (device kernels only, no
-   user annotation).
+   user annotation);
+9. the ShapeNet-55 track at full width (``shapenet55_config()``: batch 16,
+   gt 8192, the attention decoder): K1 and K2 at every 55 site and on the
+   crop's masked 8192-point blocks bit for bit; one f32 and one bf16 55
+   train step (crop, render, forward, ``get_loss_pm``, AdamW) and one
+   adversarial step with the kernels and under ``reference_ops()``, with
+   exact launch counts and the PCN bounds; ``eval_55`` over the 8 corners
+   (per sample and corner |ΔCD-L2×10³| <= 0.01); ``main_55 --epochs 1`` on a
+   synthetic ShapeNet-55 tree, then ``--test`` in f32 and bf16; the 55 train
+   ms/step, eval completions/s and K1 / K2 per site.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -182,6 +192,43 @@ BF16_STEP_LAUNCHES = {"nn_distance": 8, "fps": 6, "flash_attn": 0, "flash_attn_s
                       "flash_attn_bwd_dq_bf16": 12}
 # The synthetic PCN tree of the entry-point phase: 3 batches of 12 an epoch.
 TREE_MODELS = {"train": 36, "val": 16, "test": 16}
+
+# The ShapeNet-55 track (shapenet55_config(): batch 16, gt 8192, partial
+# 2048, step 2 / 4, merge and local 1024, the attention decoder).
+B_55 = 16
+CD_GATE_55 = 0.01  # |ΔCD-L2×10³| per sample and corner: the metric gate on the 55 metric
+# (Lq, Lk, dh) of the flash sites of the 55 SVDFormer in call order: SDG1
+# (1024 tokens, hidden 768: sa1, cross1 against the 1024 local features) and
+# SDG2 (2048 tokens, hidden 512: sa1, decoder1, cross1, decoder2). SDG1's
+# decoders (dh 32) take the naive math, as in the JAX package.
+FLASH_SITES_55 = [(1024, 1024, 96), (1024, 1024, 96), (2048, 2048, 64), (2048, 2048, 64),
+                  (2048, 1024, 64), (2048, 2048, 64)]
+ATTN_SITES = sorted(set(FLASH_SITES) | set(FLASH_SITES_55))
+# (N, M) of K1 per 55 train step: SDG1, SDG2, both directions of the loss
+# pyramid's three chamfers, the partial-matching term; per eval corner: SDG1,
+# SDG2 and both directions of calc_cd and calc_dcd.
+NN_TRAIN_SITES_55 = [(1024, 2048), (2048, 2048), (256, 256), (256, 256), (2048, 2048),
+                     (2048, 2048), (8192, 8192), (8192, 8192), (2048, 8192)]
+NN_EVAL_SITES_55 = [(1024, 2048), (2048, 2048)] + [(8192, 8192)] * 4
+# (N, npoint) of K2 per 55 train step: the crop's masked block, SA1, SA2, the
+# LocalEncoder, the merge, the loss pyramid's ground truths; per eval corner
+# the crop's kept points (6144 easy, 4096 median; hard keeps 2048 and takes
+# no FPS) and the model's four.
+FPS_TRAIN_SITES_55 = [(8192, 2048), (2048, 512), (512, 128), (2048, 1024), (2304, 1024),
+                      (8192, 2048), (2048, 256)]
+FPS_EVAL_SITES_55 = {"easy": (6144, 2048), "median": (4096, 2048)}
+FPS_MODEL_SITES_55 = [(2048, 512), (512, 128), (2048, 1024), (2304, 1024)]
+# Launches of one 55 train step: f32 (6 flash sites, the split of q, k, v in
+# each forward and of dO in each backward) and bf16 mode.
+F32_STEP_55 = {"nn_distance": 9, "fps": 7, "flash_attn": 0, "flash_attn_stats": 6,
+               "flash_attn_bwd_dkv": 6, "flash_attn_bwd_dq": 6, "split_bf16x3": 24,
+               "flash_attn_bf16": 0, "flash_attn_stats_bf16": 0, "flash_attn_bwd_dkv_bf16": 0,
+               "flash_attn_bwd_dq_bf16": 0}
+BF16_STEP_55 = dict(F32_STEP_55, flash_attn_stats=0, flash_attn_bwd_dkv=0, flash_attn_bwd_dq=0,
+                    split_bf16x3=0, flash_attn_stats_bf16=6, flash_attn_bwd_dkv_bf16=6,
+                    flash_attn_bwd_dq_bf16=6)
+# The synthetic ShapeNet-55 tree of main_55: 2 batches of 16 an epoch, 1 test batch.
+TREE_MODELS_55 = {"train": 32, "test": 16}
 SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
     "nn_distance": ("svdformer_pointsea_tpu_torch/csrc/nn_distance.cu",
                     "svdformer_pointsea_tpu/ops/nn_pallas.py:59"),
@@ -513,9 +560,9 @@ def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
     # distance is printed beside); O bit-equal with and without statistics
     # and on a repeat.
     err["flash_attn"] = err["flash_attn_stats"] = 0.0
-    k3_cases = ([(1.0, site) for site in sorted(set(FLASH_SITES)) + [(512, 512, 256),
+    k3_cases = ([(1.0, site) for site in ATTN_SITES + [(512, 512, 256),
                                                                      (2048, 2048, 256)]]
-                + [(SPREAD, site) for site in sorted(set(FLASH_SITES))])
+                + [(SPREAD, site) for site in ATTN_SITES])
     for spread, (lq, lk, dh) in k3_cases:
         q, k, v = (torch.randn(4, n_, 8, dh, device=dev, generator=g) for n_ in (lq, lk, lk))
         q = q * spread
@@ -552,7 +599,7 @@ def kernel_phase(torch, ops, flash, g) -> Dict[str, float]:
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv", "split_bf16x3"):
         err[name] = 0.0
     for spread in (1.0, SPREAD):
-        for lq, lk, dh in sorted(set(FLASH_SITES)):
+        for lq, lk, dh in ATTN_SITES:
             q, k, v, do = (torch.randn(4, n_, 8, dh, device=dev, generator=g)
                            for n_ in (lq, lk, lk, lq))
             q = q * spread
@@ -740,7 +787,7 @@ def bf16_kernel_phase(torch, kernels, flash, g) -> Dict[str, float]:
     input refused. Returns the max abs error per kernel."""
     bf = torch.bfloat16
     err = {name: 0.0 for name in BF16_KERNELS}
-    for lq, lk, dh in sorted(set(FLASH_SITES)) + [(512, 512, 256), (2048, 2048, 256)]:
+    for lq, lk, dh in ATTN_SITES + [(512, 512, 256), (2048, 2048, 256)]:
         q, k, v, do = (torch.randn(4, n_, 8, dh, device="cuda", generator=g).to(bf)
                        for n_ in (lq, lk, lk, lq))
         o_eval = flash.flash_attention(q, k, v)
@@ -1158,6 +1205,71 @@ def sdpa_efficient_backward(torch, qt, kt, vt, dot) -> Callable[[], object]:
     return lambda: bwd(dot, qt, kt, vt, None, o, lse, seed, offset, 0.0, [True, True, True, False])
 
 
+def kernel_and_plain_ms(kernels, fn: Callable[[], object], iters: int):
+    """CUDA-event ms of ``fn`` with the kernels, then with the plain versions."""
+    k_ms = cuda_ms(fn, iters)
+    with kernels.reference_ops():
+        p_ms = cuda_ms(fn, max(1, iters // 2), warmup=1)
+    return k_ms, p_ms
+
+
+def time_k1_site(torch, ops, kernels, g, bs: int, n: int, m: int, sm: int, clock_hz: float,
+                 label: str = ""):
+    """K1 at one site: its and the plain version's time, its device time (CUDA
+    graph), the FP32 issue floor (8 unfused instructions a pair at 128 a
+    clock per SM; 11 with the compare and two selects of the running argmin)
+    and the flop bound, printed; returns (ms, plain ms, device ms, floor,
+    operations, bytes): 3 sub, 3 mul, 2 add, 1 compare a pair, the clouds
+    read once, d and idx written once."""
+    a = torch.rand(bs, n, 3, device="cuda", generator=g) - 0.5
+    b = torch.rand(bs, m, 3, device="cuda", generator=g) - 0.5
+    k_ms, p_ms = kernel_and_plain_ms(kernels, lambda: ops.nn_one_way(a, b), 10)
+    dev_ms = graph_ms(lambda: ops.nn_one_way(a, b), reps=3 if n * m >= 8192 ** 2 else 10,
+                      replays=3)
+    floor = 1e3 * bs * n * m * 8 / (128 * sm * clock_hz)
+    ops_, bytes_ = 9 * bs * n * m, 12 * bs * (n + m) + 8 * bs * n
+    print(f"time{label} K1 nn_distance B{bs} {n}->{m}, plan "
+          f"{tuple(ops.nn_launch_plan(bs, n, m, sm))}: {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+          f"device (CUDA graph) {dev_ms:.4f} ms; FP32 issue floor {floor:.4f} ms "
+          f"({100 * floor / dev_ms:.1f} %; {11 * floor / 8:.4f} ms at 11 a pair, "
+          f"{1100 * floor / 8 / dev_ms:.1f} %), flop bound "
+          f"{bound_ms(ops_, bytes_):.4f} ms")
+    return k_ms, p_ms, dev_ms, floor, ops_, bytes_
+
+
+def time_k2_site(torch, ops, kernels, g, bs: int, n: int, m: int, sm: int, clock_hz: float,
+                 label: str = "", x=None):
+    """K2 at one site (on ``x`` if given, else uniform points): its and the
+    plain version's time, its device time (CUDA graph), µs a round and the
+    floors of a round on one SM (12 B a point at 128 B a clock) and on the
+    plan's C SMs (N / C points x 8 FP32 instructions at 128 a clock),
+    printed; returns (ms, plain ms, device ms, floor on C SMs, operations,
+    bytes): per round and point 8 for the distance, 1 min, 1 argmax compare."""
+    if x is None:
+        x = torch.rand(bs, n, 3, device="cuda", generator=g) - 0.5
+    k_ms, p_ms = kernel_and_plain_ms(kernels, lambda: ops.furthest_point_sample(x, m),
+                                     10 if n < 8192 else 4)
+    dev_ms = graph_ms(lambda: ops.furthest_point_sample(x, m), reps=2 if n >= 8192 else 5,
+                      replays=3)
+    plan = ops.fps_launch_plan(bs, n, m, sm)
+    one_sm = 1e3 * (m - 1) * n * 12 / 128 / clock_hz
+    floor = 1e3 * (m - 1) * -(-n // plan.cluster) * 8 / 128 / clock_hz
+    print(f"time{label} K2 fps B{bs} {n}->{m}, plan {tuple(plan)}: {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms; device (CUDA graph) {dev_ms:.4f} ms, "
+          f"{1e3 * dev_ms / (m - 1):.3f} µs a round; floors: one SM {one_sm:.4f} ms "
+          f"({1e3 * one_sm / (m - 1):.3f} µs a round), the plan's C SMs {floor:.4f} ms "
+          f"({1e3 * floor / (m - 1):.3f} µs a round)")
+    return k_ms, p_ms, dev_ms, floor, 10 * bs * n * m, 12 * bs * n + 4 * bs * m
+
+
+def print_point_sums(sums, per: str, bs: int) -> None:
+    for name, r in sums.items():
+        print(f"time {name} per {per} batch of {bs}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms; device (CUDA graph) {r['device_ms']:.4f} ms, floor {r['floor_ms']:.4f} ms "
+              f"({100 * r['floor_ms'] / r['device_ms']:.1f} %; K1: the FP32 issue floor at 8 a "
+              "pair, K2: the plan's C SMs)")
+
+
 def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
     """Kernel, plain and library time (ms) and bound summed over the calls one
     training batch of 12 makes (K1, K2, K3 with statistics, K4, K5, f32 and
@@ -1284,10 +1396,7 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
 
     def both(fn, iters):
-        k_ms = cuda_ms(fn, iters)
-        with kernels.reference_ops():
-            p_ms = cuda_ms(fn, max(1, iters // 2), warmup=1)
-        return k_ms, p_ms
+        return kernel_and_plain_ms(kernels, fn, iters)
 
     # K1 and K2: per training batch of 12 (the step's sites) for the report,
     # and per evaluation batch of 8 printed beside it; each site with its
@@ -1305,46 +1414,22 @@ def kernel_times(torch, ops, flash, kernels, g) -> Dict[str, Dict[str, float]]:
         sums = {name: {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "floor_ms": 0.0}
                 for name in ("nn_distance", "fps")}
         for n, m in nn_sites:
-            a = torch.rand(bs, n, 3, device=dev, generator=g) - 0.5
-            b = torch.rand(bs, m, 3, device=dev, generator=g) - 0.5
-            k_ms, p_ms = both(lambda: ops.nn_one_way(a, b), 10)
-            dev_ms = graph_ms(lambda: ops.nn_one_way(a, b), reps=3 if n == 16384 else 10, replays=3)
-            floor = 1e3 * bs * n * m * 8 / (128 * sm * clock_hz)
-            ops_, bytes_ = 9 * bs * n * m, 12 * bs * (n + m) + 8 * bs * n  # clouds in, d, idx out
+            k_ms, p_ms, dev_ms, floor, ops_, bytes_ = time_k1_site(torch, ops, kernels, g, bs, n,
+                                                                   m, sm, clock_hz)
             for key, v in zip(("ms", "plain_ms", "device_ms", "floor_ms"), (k_ms, p_ms, dev_ms, floor)):
                 sums["nn_distance"][key] += v
-            if per == "train":  # 3 sub, 3 mul, 2 add, 1 compare a pair
+            if per == "train":
                 add("nn_distance", k_ms, p_ms, ops_, bytes_)
                 out["nn_distance"]["device_ms"] += dev_ms
-            print(f"time K1 nn_distance B{bs} {n}->{m}, plan "
-                  f"{tuple(ops.nn_launch_plan(bs, n, m, sm))}: {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
-                  f"device (CUDA graph) {dev_ms:.4f} ms; FP32 issue floor {floor:.4f} ms "
-                  f"({100 * floor / dev_ms:.1f} %; {11 * floor / 8:.4f} ms at 11 a pair, "
-                  f"{1100 * floor / 8 / dev_ms:.1f} %), flop bound "
-                  f"{bound_ms(ops_, bytes_):.4f} ms")
         for n, m in fps_sites:
-            x = torch.rand(bs, n, 3, device=dev, generator=g) - 0.5
-            k_ms, p_ms = both(lambda: ops.furthest_point_sample(x, m), 10 if n < 16384 else 4)
-            dev_ms = graph_ms(lambda: ops.furthest_point_sample(x, m), reps=2 if n == 16384 else 5,
-                              replays=3)
-            plan = ops.fps_launch_plan(bs, n, m, sm)
-            one_sm = 1e3 * (m - 1) * n * 12 / 128 / clock_hz
-            floor = 1e3 * (m - 1) * -(-n // plan.cluster) * 8 / 128 / clock_hz
+            k_ms, p_ms, dev_ms, floor, ops_, bytes_ = time_k2_site(torch, ops, kernels, g, bs, n,
+                                                                   m, sm, clock_hz)
             for key, v in zip(("ms", "plain_ms", "device_ms", "floor_ms"), (k_ms, p_ms, dev_ms, floor)):
                 sums["fps"][key] += v
-            if per == "train":  # per round and point: 8 for the distance, 1 min, 1 argmax compare
-                add("fps", k_ms, p_ms, 10 * bs * n * m, 12 * bs * n + 4 * bs * m)
+            if per == "train":
+                add("fps", k_ms, p_ms, ops_, bytes_)
                 out["fps"]["device_ms"] += dev_ms
-            print(f"time K2 fps B{bs} {n}->{m}, plan {tuple(plan)}: {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms; device (CUDA graph) {dev_ms:.4f} ms, "
-                  f"{1e3 * dev_ms / (m - 1):.3f} µs a round; floors: one SM {one_sm:.4f} ms "
-                  f"({1e3 * one_sm / (m - 1):.3f} µs a round), the plan's C SMs {floor:.4f} ms "
-                  f"({1e3 * floor / (m - 1):.3f} µs a round)")
-        for name, r in sums.items():
-            print(f"time {name} per {per} batch of {bs}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-                  f"ms; device (CUDA graph) {r['device_ms']:.4f} ms, floor {r['floor_ms']:.4f} ms "
-                  f"({100 * r['floor_ms'] / r['device_ms']:.1f} %; K1: the FP32 issue floor at 8 a "
-                  "pair, K2: the plan's C SMs)")
+        print_point_sums(sums, per, bs)
 
     for sfx, dtype, backend in (("", torch.float32, SDPBackend.EFFICIENT_ATTENTION),
                                 ("_bf16", torch.bfloat16, SDPBackend.FLASH_ATTENTION)):
@@ -1541,6 +1626,428 @@ def kernel_profile(torch, fn: Callable[[], object], label: str = "train") -> Non
         print(f"profile {label} top kernel {v:9.3f} ms  {key}")
 
 
+def ellipsoids_55(rng: np.random.RandomState, n: int = 8192) -> np.ndarray:
+    """(B_55, n, 3) f32 points on random ellipsoids, normalised into the unit
+    sphere as ShapeNet55Dataset normalises its clouds."""
+    from svdformer_pointsea_tpu_torch.data.transforms import pc_norm
+
+    out = []
+    for _ in range(B_55):
+        axes = rng.uniform(0.2, 0.45, size=3)
+        v = rng.randn(n, 3)
+        out.append(pc_norm((v / np.linalg.norm(v, axis=1, keepdims=True) * axes)
+                           .astype(np.float32)).astype(np.float32))
+    return np.stack(out)
+
+
+def masked_block(gt, direction, num_crop):
+    """The 55 train step's input to K2: each cloud sorted by distance to its
+    direction, its kept block shifted to index 0, the other rows zeroed."""
+    from svdformer_pointsea_tpu_torch.data import crop
+
+    s = crop._sorted_by_direction(gt, direction)
+    return crop.masked_block(s, num_crop, gt.shape[1] - num_crop).contiguous()
+
+
+def points_55_phase(torch, ops, kernels, g) -> Dict[str, float]:
+    """K1 and K2 at every site of the 55 track at B 16 against their plain
+    versions, bit for bit and on a repeat, each with its plan; K2 on the
+    crop's masked 8192-point blocks keeping 2048, 4096 and 6144 points (and
+    random_partial, the train step's crop, kernels against plain), with no
+    zero row picked. Returns the max abs error per kernel."""
+    from svdformer_pointsea_tpu_torch.data import random_partial
+
+    dev = torch.device("cuda")
+    sm = kernels.sm_count(dev)
+    worst = {"nn_distance": 0.0, "fps": 0.0}
+    for n, m in sorted(set(NN_TRAIN_SITES_55) | set(NN_EVAL_SITES_55)):
+        a = torch.rand(B_55, n, 3, device=dev, generator=g) - 0.5
+        b = torch.rand(B_55, m, 3, device=dev, generator=g) - 0.5
+        d, i = ops.nn_one_way(a, b)
+        d2, i2 = ops.nn_one_way(a, b)
+        dp, ip = ops.nn_one_way_plain(a, b)
+        equal = torch.equal(d, dp) and torch.equal(i, ip)
+        repeat = torch.equal(d, d2) and torch.equal(i, i2)
+        e = (d - dp).abs().max().item()
+        print(f"55 K1 nn_distance B{B_55} {n}->{m}, plan "
+              f"{tuple(ops.nn_launch_plan(B_55, n, m, sm))}: d and idx bit-equal to the plain "
+              f"version {equal}, on a repeat {repeat}")
+        if not (equal and repeat):
+            fail(f"55 nn_distance B{B_55} {n}->{m} differs from its plain version or its repeat")
+        worst["nn_distance"] = max(worst["nn_distance"], e)
+    gt = torch.as_tensor(ellipsoids_55(np.random.RandomState(SEED + 10)), device=dev)
+    cases = [(f"{n}->{m}", torch.rand(B_55, n, 3, device=dev, generator=g) - 0.5, m)
+             for n, m in sorted(set(FPS_TRAIN_SITES_55) | set(FPS_MODEL_SITES_55)
+                                | set(FPS_EVAL_SITES_55.values()))]
+    direction = torch.nn.functional.normalize(torch.randn(B_55, 3, device=dev, generator=g), dim=-1)
+    for kept in (2048, 4096, 6144):
+        num_crop = torch.full((B_55,), 8192 - kept, dtype=torch.int32, device=dev)
+        cases.append((f"masked crop block 8192 (kept {kept})->2048",
+                      masked_block(gt, direction, num_crop), 2048))
+    for name, x, m in cases:
+        plan = ops.fps_launch_plan(B_55, x.shape[1], m, sm)
+        i = ops.furthest_point_sample(x, m)
+        again = ops.furthest_point_sample(x, m)
+        ip = ops.furthest_point_sample_ref(x, m)
+        bad = int((i != ip).sum().item())
+        repeat = torch.equal(i, again)
+        zero_picked = int((x.gather(1, i.long()[..., None].expand(-1, -1, 3)).square().sum(-1)
+                           <= 1e-3).sum().item())
+        print(f"55 K2 fps B{B_55} {name}, plan {tuple(plan)}: {bad} index mismatches; repeat "
+              f"bit-equal {repeat}; zero rows picked {zero_picked}")
+        if bad or not repeat or (name.startswith("masked") and zero_picked):
+            fail(f"55 fps {name}: {bad} indices differ from the plain version, repeat {repeat}, "
+                 f"{zero_picked} zero rows picked")
+        worst["fps"] = max(worst["fps"], float((i - ip).abs().max().item()))
+    num_crop = torch.as_tensor(np.random.RandomState(SEED + 11).randint(2048, 6145, B_55),
+                               dtype=torch.int32, device=dev)
+    part = random_partial(gt, direction, num_crop, 2048)
+    with kernels.reference_ops():
+        part_ref = random_partial(gt, direction, num_crop, 2048)
+    print(f"55 crop: random_partial at crop sizes {num_crop.min().item()}-"
+          f"{num_crop.max().item()} bit-equal to its plain version {torch.equal(part, part_ref)}")
+    if not torch.equal(part, part_ref):
+        fail("the 55 train step's crop differs between K2 and its plain version")
+    return worst
+
+
+def deterministic_pair(torch, kernels, fn):
+    """``fn()`` with the kernels and under reference_ops(), both with
+    PyTorch's deterministic algorithms (index_add_ without atomics)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = fn()
+        with kernels.reference_ops():
+            want = fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return got, want
+
+
+def batch_55(torch, seed: int):
+    """One 55 train batch of 16 on the card: gt, the host's crop draw (as
+    train_net draws it) and row weights (3 pad rows of weight 0)."""
+    from svdformer_pointsea_tpu_torch.data import random_crop_params
+
+    gt = ellipsoids_55(np.random.RandomState(seed))
+    num_crop, direction = random_crop_params(np.random.RandomState(seed + 1), B_55, gt.shape[1])
+    weights = torch.ones(B_55, device="cuda")
+    weights[-3:] = 0.0
+    return tuple(torch.as_tensor(x, device="cuda") for x in (gt, direction, num_crop)) + (weights,)
+
+
+def train_55_phase(torch, kernels, cfg, batch, precision: str):
+    """One 55 train step (crop, render, forward, get_loss_pm, AdamW) with the
+    kernels (the counted main path; exactly F32_STEP_55 or BF16_STEP_55
+    launches) and one under reference_ops() from the same state, both with
+    deterministic algorithms; loss and parts within the PCN bounds of the
+    precision, AdamW's first moment per parameter too; then 2 more kernel
+    steps with finite losses."""
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import (build_model, init_state, make_lr_fn,
+                                                    make_train_step)
+
+    bf16 = precision == "bf16"
+    lr = make_lr_fn(cfg)(1, 0)
+    runs = {}
+    for mode in ("kernels", "plain"):
+        model = build_model(cfg, seed=SEED)
+        state = init_state(cfg, model)
+        runs[mode] = (model, state, make_train_step(
+            model, state.optimizer, cfg.train.sqrt_loss, make_renderer(cfg).get_img,
+            partial_matching=True, crop_n_out=cfg.data.n_points))
+    with mixed_precision(bf16):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        model_k, state_k, step_k = runs["kernels"]
+        kernels.reset_launches()
+        state_k, m_k = step_k(state_k, *batch, lr)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        model_r, state_r, step_r = runs["plain"]
+        with kernels.reference_ops():
+            state_r, m_r = step_r(state_r, *batch, lr)
+        torch.cuda.synchronize()
+        torch.use_deterministic_algorithms(False)
+    label = f"55 {precision} train"
+    want = BF16_STEP_55 if bf16 else F32_STEP_55
+    print(f"{label} main path launches (one step): {launches}")
+    if launches != want:
+        fail(f"{label} step launches {launches}, expected {want}")
+    if kernels.launches != launches:
+        fail("a kernel launched under reference_ops()")
+    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+    for key in ("loss", "cdc", "cd1", "cd2"):
+        a, b = m_k[key].item(), m_r[key].item()
+        rel = abs(a - b) / abs(b)
+        print(f"{label} step 1 {key}: kernels {a:.8f}, plain {b:.8f}, rel |Δ| {rel:.3e} "
+              f"(bound {loss_rtol})")
+        if not (math.isfinite(a) and rel <= loss_rtol):
+            fail(f"{label} {key} differs: {a} vs {b}")
+    kw = dict(rtol=BF16_MU_RTOL, apart=(BF16_TRUNK, BF16_TRUNK_MU_RTOL)) if bf16 else {}
+    worst, worst_noise, worst_trunk = first_moment_gap(torch, runs["kernels"], runs["plain"],
+                                                       check=True, **kw)
+    print(f"{label} AdamW first moment kernels vs plain: worst leaf {worst[1]} rel ‖Δ‖ "
+          f"{worst[0]:.3e} (bound {kw.get('rtol', MU_RTOL)})"
+          + (f"; bf16 image trunk {worst_trunk[1]} {worst_trunk[0]:.3e} (bound "
+             f"{BF16_TRUNK_MU_RTOL})" if bf16 else "")
+          + f"; zero-gradient leaves max |mu| {worst_noise[0]:.3e} ({worst_noise[1]})")
+    del runs, model_r, state_r, step_r
+    losses = []
+    with mixed_precision(bf16):
+        for _ in range(2):
+            state_k, m = step_k(state_k, *batch, lr)
+            losses.append(m["loss"].item())
+    print(f"{label} steps 2-3: losses {losses}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite {label} loss")
+    return launches, m_k
+
+
+def eval_55_phase(torch, kernels, cfg, model, gt, precision: str, modes):
+    """eval_55 over the 8 corners of one batch of 16 at ``modes[0]`` (the
+    counted main path), then make_55_eval_fn at every mode of ``modes`` with
+    the kernels and under reference_ops(), both with deterministic
+    algorithms: per sample and corner |ΔCD-L2×10³| <= CD_GATE_55, DCD and F1
+    finite. The render's index_add_ adds with atomics in no fixed order under
+    the default algorithms, and a last-bit change of the coarse points can
+    flip a pick of the merge's FPS: that run-to-run noise (the kernels with
+    the default algorithms against the deterministic run) is printed beside
+    the gate, not gated, as the train phases print theirs."""
+    from svdformer_pointsea_tpu_torch.data import FIXED_CORNERS
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train.evaluate import CROP_RATIO, eval_55, make_55_eval_fn
+
+    corners = torch.as_tensor(FIXED_CORNERS, device="cuda")
+    batch = Batch(data={"gtcloud": gt.cpu().numpy()},
+                  taxonomy_ids=["02691156" if i % 2 == 0 else "03001627" for i in range(B_55)],
+                  valid=B_55)
+    with mixed_precision(precision == "bf16"):
+        kernels.reset_launches()
+        mean_cd = eval_55(cfg, model, [batch], mode=modes[0])
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        print(f"55 {precision} eval main path launches (8 corners, {modes[0]}): {launches}; mean "
+              f"CD-L2×10³ {mean_cd:.6f}")
+        k3 = "flash_attn_bf16" if precision == "bf16" else "flash_attn"
+        for name in ("nn_distance", "fps", k3):
+            if launches[name] == 0:
+                fail(f"kernel {name} was not launched on the 55 {precision} evaluation path")
+        for mode in modes:
+            eval_fn = make_55_eval_fn(model, make_renderer(cfg),
+                                      int(cfg.data.gt_points * CROP_RATIO[mode]),
+                                      n_sample=cfg.data.n_points)
+            m_k, m_r = deterministic_pair(torch, kernels, lambda: eval_fn(gt, corners).cpu())
+            noise = (eval_fn(gt, corners).cpu()[:, 0] - m_k[:, 0]).abs().max().item()
+            if not (torch.isfinite(m_k).all() and torch.isfinite(m_r).all()):
+                fail(f"non-finite 55 {precision} CD / DCD / F1 at {mode}")
+            worst = (m_k[:, 0] - m_r[:, 0]).abs().max().item()
+            print(f"55 {precision} eval {mode}, 8 corners x {B_55}: per-sample |ΔCD-L2×10³| "
+                  f"kernels vs plain (deterministic algorithms) max {worst:.3e} (gate "
+                  f"{CD_GATE_55}); run-to-run noise with atomics {noise:.3e}; mean CD-L2×10³ "
+                  f"{m_k[:, 0].mean().item():.4f}, DCD {m_k[:, 1].mean().item():.4f}, F1 "
+                  f"{m_k[:, 2].mean().item():.4f}")
+            if not worst <= CD_GATE_55:
+                fail(f"55 {precision} CD-L2×10³ at {mode} differs by {worst}")
+    return launches
+
+
+def adv_55_phase(torch, kernels, cfg, batch):
+    """One adversarial 55 step (d_steps 1) with the kernels and under
+    reference_ops() from one state, deterministic algorithms: the generator's
+    loss, its BCE term, the D loss and the pyramid parts within LOSS_RTOL;
+    both networks' parameters moved."""
+    from svdformer_pointsea_tpu_torch.nn import has_zero_gradient
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import build_model, init_state, make_lr_fn
+    from svdformer_pointsea_tpu_torch.train.gan import create_adv55_state, make_adv55_train_step
+
+    lr, t = make_lr_fn(cfg)(1, 0), cfg.train
+    runs, before = {}, None
+    for mode in ("kernels", "plain"):
+        model = build_model(cfg, seed=SEED)
+        state = init_state(cfg, model)
+        adv = create_adv55_state(cfg, "cuda", seed=SEED)
+        if before is None:
+            before = ({n: p.clone() for n, p in model.named_parameters()},
+                      {n: p.clone() for n, p in adv.model.named_parameters()})
+        runs[mode] = (state, adv, make_adv55_train_step(
+            model, state.optimizer, sqrt_loss=t.sqrt_loss, lambda_g=t.adv_lambda_g, d_steps=1,
+            render_fn=make_renderer(cfg).get_img, crop_n_out=cfg.data.n_points))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    state, adv, step = runs["kernels"]
+    kernels.reset_launches()
+    state, adv, m_k = step(state, adv, *batch, lr, t.adv_d_lr)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    state_r, adv_r, step_r = runs["plain"]
+    with kernels.reference_ops():
+        _, _, m_r = step_r(state_r, adv_r, *batch, lr, t.adv_d_lr)
+    torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(False)
+    print(f"55 adversarial step launches: {launches}")
+    if any(launches[name] != n for name, n in F32_STEP_55.items()):
+        fail(f"55 adversarial step launches {launches}, expected {F32_STEP_55}")
+    for key in ("loss", "d_loss", "gan", "cdc", "cd1", "cd2"):
+        a, b = m_k[key].item(), m_r[key].item()
+        rel = abs(a - b) / abs(b)
+        print(f"55 adversarial step {key}: kernels {a:.8f}, plain {b:.8f}, rel |Δ| {rel:.3e} "
+              f"(bound {LOSS_RTOL})")
+        if not (math.isfinite(a) and rel <= LOSS_RTOL):
+            fail(f"55 adversarial {key} differs: {a} vs {b}")
+    g_moved = sum(not torch.equal(p, before[0][n]) for n, p in state.model.named_parameters())
+    d_moved = sum(not torch.equal(p, before[1][n]) for n, p in adv.model.named_parameters())
+    n_g, n_d = len(before[0]), len(before[1])
+    print(f"55 adversarial step: generator parameters moved {g_moved} of {n_g}, discriminator "
+          f"{d_moved} of {n_d}")
+    if d_moved != n_d or g_moved < n_g - sum(map(has_zero_gradient, before[0])):
+        fail("the adversarial step left parameters of a network unchanged")
+    return launches
+
+
+def entry_55_phase(torch, kernels) -> Dict[str, Dict[str, int]]:
+    """main_55 on a synthetic ShapeNet-55 tree (write_55_tree: 32 train and
+    16 test clouds of 8192 points): --epochs 1 (2 steps, validation by
+    eval_55, checkpoints), then --test --mode easy in f32 and in bf16, and the
+    test set's per-sample, per-corner CD with kernels vs reference_ops()."""
+    from svdformer_pointsea_tpu_torch.cli import main_55
+    from svdformer_pointsea_tpu_torch.configs import shapenet55_config
+    from svdformer_pointsea_tpu_torch.data import FIXED_CORNERS, Loader, make_dataset
+    from svdformer_pointsea_tpu_torch.data.synthetic import write_55_tree
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import build_model, init_state, restore_checkpoint
+    from svdformer_pointsea_tpu_torch.train.evaluate import CROP_RATIO, make_55_eval_fn
+
+    launches = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        write_55_tree(root, np.random.RandomState(SEED + 3), TREE_MODELS_55)
+        os.chdir(root)
+        try:
+            out = os.path.join(root, "out")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            state, best = main_55(["--epochs", "1", "--out", out])
+            torch.cuda.synchronize()
+            launches["main_55 train"] = dict(kernels.launches)
+            print(f"main_55 --epochs 1: {state.step} steps, best val CD-L2×10³ {best:.4f}, "
+                  f"{time.perf_counter() - t0:.1f} s; launches {launches['main_55 train']}")
+            if state.step != TREE_MODELS_55["train"] // B_55 or not math.isfinite(best):
+                fail(f"main_55 took {state.step} steps, best {best}")
+            for name in TRAIN_KERNELS:
+                if launches["main_55 train"][name] == 0:
+                    fail(f"kernel {name} was not launched by main_55")
+            ckpt = os.path.join(out, "checkpoints", "ckpt-best.pt")
+            del state
+            for precision in ("f32", "bf16"):
+                kernels.reset_launches()
+                mean_cd = main_55(["--test", "--mode", "easy", "--weights", ckpt,
+                                   "--precision", precision])
+                torch.cuda.synchronize()
+                launches[f"main_55 --test {precision}"] = dict(kernels.launches)
+                k3 = "flash_attn_bf16" if precision == "bf16" else "flash_attn"
+                print(f"main_55 --test --mode easy --precision {precision}: mean CD-L2×10³ "
+                      f"{mean_cd:.6f}; launches {kernels.launches}")
+                if not math.isfinite(mean_cd) or kernels.launches[k3] == 0:
+                    fail(f"main_55 --test {precision}")
+            cfg = shapenet55_config()
+            loaded, _, _ = restore_checkpoint(ckpt, init_state(cfg, build_model(cfg, seed=SEED)))
+            eval_fn = make_55_eval_fn(loaded.model, make_renderer(cfg),
+                                      int(cfg.data.gt_points * CROP_RATIO["easy"]))
+            corners = torch.as_tensor(FIXED_CORNERS, device="cuda")
+            for precision in ("f32", "bf16"):
+                worst = 0.0
+                with mixed_precision(precision == "bf16"):
+                    for batch in Loader(make_dataset(cfg, "test"), B_55):
+                        gt = torch.as_tensor(batch.data["gtcloud"], device="cuda")
+                        m_k, m_r = deterministic_pair(
+                            torch, kernels, lambda: eval_fn(gt, corners)[:, :, :batch.valid].cpu())
+                        if not (torch.isfinite(m_k).all() and torch.isfinite(m_r).all()):
+                            fail("non-finite 55 test metrics")
+                        worst = max(worst, (m_k[:, 0] - m_r[:, 0]).abs().max().item())
+                print(f"55 test set per-sample |ΔCD-L2×10³| kernels vs plain (deterministic "
+                      f"algorithms), {precision}: max {worst:.3e} (gate {CD_GATE_55})")
+                if not worst <= CD_GATE_55:
+                    fail(f"55 {precision} test CD differs by {worst} between kernels and plain")
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def times_55(torch, ops, kernels, cfg, batch, eval_gt, g) -> Dict[str, float]:
+    """55 timings: train ms/step at B 16 in f32 and bf16 mode (3 steps after
+    1 warm-up, twice) with a profile of each, eval completions/s (a
+    completion = one sample at one corner; 8 corners of 16 a call) in f32 and
+    bf16 mode, and K1 / K2 per site of a 55 train batch (the crop's K2 on a
+    masked block keeping 4096 points) and of an eval corner, with their
+    device times and floors. Returns the per-train-batch sums."""
+    from svdformer_pointsea_tpu_torch.data import FIXED_CORNERS
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import build_model, init_state, make_train_step
+    from svdformer_pointsea_tpu_torch.train.evaluate import CROP_RATIO, make_55_eval_fn
+
+    model = build_model(cfg, seed=SEED)
+    state = init_state(cfg, model)
+    step = make_train_step(model, state.optimizer, cfg.train.sqrt_loss, make_renderer(cfg).get_img,
+                           partial_matching=True, crop_n_out=cfg.data.n_points)
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], *batch, 1e-6)
+
+    for precision in ("f32", "bf16"):
+        with mixed_precision(precision == "bf16"):
+            ms = [cuda_ms(one, iters=3, warmup=1) for _ in range(2)]
+            torch.cuda.reset_peak_memory_stats()
+            one()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"55 {precision} train ms/step at B={B_55} (crop + render + forward + "
+                  f"get_loss_pm + backward + AdamW): kernels " + ", ".join(f"{x:.2f}" for x in ms)
+                  + f"; peak memory {peak:.2f} GiB")
+            kernel_profile(torch, one, f"55 {precision} train")
+    corners = torch.as_tensor(FIXED_CORNERS, device="cuda")
+    eval_fn = make_55_eval_fn(model, make_renderer(cfg),
+                              int(cfg.data.gt_points * CROP_RATIO[cfg.data.mode]))
+    for precision in ("f32", "bf16"):
+        with mixed_precision(precision == "bf16"):
+            rates = [8 * B_55 * 1000.0 / cuda_ms(lambda: eval_fn(eval_gt, corners), iters=2,
+                                                 warmup=1) for _ in range(2)]
+        print(f"55 {precision} eval completions/s ({cfg.data.mode}, 8 corners x {B_55} a call: "
+              "crop + FPS + render + forward + CD/DCD/F1): kernels "
+              + ", ".join(f"{r:.2f}" for r in rates))
+    del model, state, step, box, eval_fn
+    torch.cuda.empty_cache()
+
+    clock_hz = sm_clock_mhz() * 1e6
+    sm = kernels.sm_count(torch.device("cuda"))
+    gt = batch[0]
+    kept = torch.full((B_55,), 4096, dtype=torch.int32, device="cuda")
+    block = masked_block(gt, batch[1], gt.shape[1] - kept)
+    totals = {}
+    for per, nn_sites, fps_sites in (
+            ("55 train", NN_TRAIN_SITES_55, FPS_TRAIN_SITES_55),
+            ("55 eval corner", NN_EVAL_SITES_55,
+             [FPS_EVAL_SITES_55[cfg.data.mode]] + FPS_MODEL_SITES_55)):
+        sums = {name: {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "floor_ms": 0.0}
+                for name in ("nn_distance", "fps")}
+        for n, m in nn_sites:
+            r = time_k1_site(torch, ops, kernels, g, B_55, n, m, sm, clock_hz, label=" 55")
+            for key, v in zip(("ms", "plain_ms", "device_ms", "floor_ms"), r[:4]):
+                sums["nn_distance"][key] += v
+        for j, (n, m) in enumerate(fps_sites):
+            x = block if per == "55 train" and j == 0 else None
+            r = time_k2_site(torch, ops, kernels, g, B_55, n, m, sm, clock_hz, label=" 55", x=x)
+            for key, v in zip(("ms", "plain_ms", "device_ms", "floor_ms"), r[:4]):
+                sums["fps"][key] += v
+        print_point_sums(sums, per, B_55)
+        totals[per] = sums
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1553,7 +2060,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from svdformer_pointsea_tpu_torch import kernels, ops
-    from svdformer_pointsea_tpu_torch.configs import pcn_config
+    from svdformer_pointsea_tpu_torch.configs import pcn_config, shapenet55_config
     from svdformer_pointsea_tpu_torch.nn import flash, mixed_precision
     from svdformer_pointsea_tpu_torch.render import make_renderer
     from svdformer_pointsea_tpu_torch.train import build_model, init_state, make_train_step
@@ -1646,6 +2153,37 @@ def main() -> int:
         mean_step = sum(step_ms[precision]["kernels"]) / len(step_ms[precision]["kernels"])
         print(f"{precision}: K3+stats + K5 + K4 per training batch: {attn:.3f} ms, "
               f"{100 * attn / mean_step:.1f} % of the {mean_step:.2f} ms kernel train step")
+    # The ShapeNet-55 track: K1 and K2 at its sites, the f32 and bf16 train
+    # steps, eval_55, the adversarial step, main_55, its timings.
+    t55 = time.perf_counter()
+    cfg55 = shapenet55_config()
+    for name, e in points_55_phase(torch, ops, kernels, g).items():
+        max_err[name] = max(max_err[name], e)
+    batch55 = batch_55(torch, SEED + 20)
+    paths["55_train_step"], _ = train_55_phase(torch, kernels, cfg55, batch55, "f32")
+    torch.cuda.empty_cache()
+    paths["55_bf16_train_step"], _ = train_55_phase(torch, kernels, cfg55, batch55, "bf16")
+    torch.cuda.empty_cache()
+    model55 = build_model(cfg55, seed=SEED).eval()
+    print(f"SVDFormer (ShapeNet-55, step {cfg55.network.step1}/{cfg55.network.step2}, merge "
+          f"{cfg55.network.merge_points}, local {cfg55.network.local_points}, decoder "
+          f"{cfg55.network.decoder}, gt {cfg55.data.gt_points}): "
+          f"{sum(p.numel() for p in model55.parameters()) / 1e6:.2f} M parameters")
+    eval_gt = torch.as_tensor(ellipsoids_55(np.random.RandomState(SEED + 21)), device="cuda")
+    paths["55_eval"] = eval_55_phase(torch, kernels, cfg55, model55, eval_gt, "f32",
+                                     ("easy", "median", "hard"))
+    paths["55_bf16_eval"] = eval_55_phase(torch, kernels, cfg55, model55, eval_gt, "bf16",
+                                          ("easy",))
+    del model55
+    torch.cuda.empty_cache()
+    adv_cfg = shapenet55_config(adv=True)
+    paths["55_adv_step"] = adv_55_phase(torch, kernels, adv_cfg, batch55)
+    torch.cuda.empty_cache()
+    paths.update(entry_55_phase(torch, kernels))
+    torch.cuda.empty_cache()
+    points55 = times_55(torch, ops, kernels, cfg55, batch55, eval_gt, g)
+    print(f"ShapeNet-55 part: {time.perf_counter() - t55:.1f} s")
+
     report = {"kernels": []}
     for name in kernels.KERNEL_NAMES:
         t = times[name]
@@ -1667,6 +2205,10 @@ def main() -> int:
                                           if key in t})
         elif "device_ms" in t:  # K1, K2 and the split pass: no library call
             report["kernels"][-1]["device_ms"] = round(t["device_ms"], 4)
+        if name in points55["55 train"]:  # K1, K2 per 55 train batch of 16
+            r55 = points55["55 train"][name]
+            report["kernels"][-1]["per_55_train_batch"] = {
+                key: round(r55[key], 4) for key in ("ms", "plain_ms", "device_ms")}
     for row in report["kernels"]:
         if not all(math.isfinite(row[k]) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")):
             fail(f"non-finite measurement in {row}")

@@ -1,11 +1,13 @@
-"""Command-line entry point of the PCN track (semantics of
-svdformer_pointsea_tpu/cli.py ``main_pcn``): training by default, evaluation
-of ``--weights`` with ``--test`` or ``--inference``.
+"""Command-line entry points of the PCN and ShapeNet-55 tracks (semantics
+of svdformer_pointsea_tpu/cli.py ``main_pcn`` / ``main_55``): training by
+default, evaluation of ``--weights`` with ``--test`` or ``--inference``.
 
     python -m svdformer_pointsea_tpu_torch.cli pcn [--test|--inference] [--weights CKPT]
         [--out DIR] [--epochs N] [--precision f32|bf16] [--progress]
+    python -m svdformer_pointsea_tpu_torch.cli 55 [the same flags]
+        [--mode easy|median|hard] [--dataset 55|34|unseen21]
 
-It runs on the CUDA card unless ``main_pcn`` is called with
+They run on the CUDA card unless ``main_pcn`` / ``main_55`` is called with
 ``device="cpu"``. The JAX package's ``--sp`` (> 1), ``--dp shard_map`` and
 ``--complete`` are parsed and refused with the ROADMAP item that ports them.
 """
@@ -19,11 +21,16 @@ import sys
 from pprint import pprint
 from typing import Optional, Sequence
 
-from svdformer_pointsea_tpu_torch.configs import Config, pcn_config
+from svdformer_pointsea_tpu_torch.configs import (
+    Config,
+    pcn_config,
+    shapenet34_config,
+    shapenet55_config,
+)
 
 
-def _parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="SVDFormer on PCN, PyTorch / CUDA port")
+def _parser(track: str = "pcn") -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=f"SVDFormer on {track}, PyTorch / CUDA port")
     p.add_argument("--test", action="store_true", help="evaluate --weights on the test split")
     p.add_argument("--inference", action="store_true", help="the same as --test")
     p.add_argument("--weights", default=None, help="checkpoint to resume from or to evaluate")
@@ -39,6 +46,12 @@ def _parser() -> argparse.ArgumentParser:
                    help="not ported beyond one card: multi-GPU, item 15")
     p.add_argument("--complete", default=None, metavar="PATH",
                    help="not ported: standalone completion, item 13")
+    if track == "55":
+        p.add_argument("--mode", default=None, choices=["easy", "median", "hard"],
+                       help="evaluation crop difficulty (default easy)")
+        p.add_argument("--dataset", default="55", choices=["55", "34", "unseen21"],
+                       help="index preset: ShapeNet-55, ShapeNet-34, or ShapeNet-Unseen21 "
+                            "(a 34-trained model on the 21 held-out categories)")
     return p
 
 
@@ -70,33 +83,61 @@ def _apply_overrides(cfg: Config, args) -> Config:
     return cfg
 
 
-def main_pcn(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
-    """Train, or with ``--test`` / ``--inference`` evaluate, SVDFormer on PCN.
-    Returns ``train_net``'s ``(state, best_metric)`` or ``test_net``'s mean CD."""
-    from svdformer_pointsea_tpu_torch.train import test_net, train_net
+def _dispatch(cfg: Config, args, device: Optional[str], **test_kw):
+    from svdformer_pointsea_tpu_torch import train
 
-    logging.basicConfig(format="[%(levelname)s] %(asctime)s %(message)s", level=logging.INFO)
-    args = _parser().parse_args(argv)
-    _refuse_unported(args)
-    cfg = _apply_overrides(pcn_config(), args)
     print("Use config:")
     pprint(cfg)
     if not args.test and not args.inference:
-        return train_net(cfg, device=device)
+        return train.train_net(cfg, device=device)
     if cfg.weights is None:
         raise SystemExit("Please specify the path to a checkpoint (--weights)!")
-    return test_net(cfg, device=device)
+    return train.test_net(cfg, device=device, **test_kw)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def _setup(track: str, argv):
+    logging.basicConfig(format="[%(levelname)s] %(asctime)s %(message)s", level=logging.INFO)
+    args = _parser(track).parse_args(argv)
+    _refuse_unported(args)
+    return args
+
+
+def main_pcn(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
+    """Train, or with ``--test`` / ``--inference`` evaluate, SVDFormer on PCN.
+    Returns ``train_net``'s ``(state, best_metric)`` or ``test_net``'s mean CD."""
+    args = _setup("pcn", argv)
+    return _dispatch(_apply_overrides(pcn_config(), args), args, device)
+
+
+def main_55(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
+    """Train, or with ``--test`` / ``--inference`` evaluate, SVDFormer on
+    ShapeNet-55 (``--dataset 34``: ShapeNet-34, ``unseen21``: its Unseen-21
+    split), evaluating at the crop difficulty ``--mode``. Returns
+    ``train_net``'s ``(state, best_metric)`` or ``test_net``'s mean CD."""
+    args = _setup("55", argv)
+    mode = args.mode or "easy"
+    if args.dataset == "55":
+        cfg = shapenet55_config(mode=mode)
+    else:
+        cfg = shapenet34_config(unseen=args.dataset == "unseen21", mode=mode)
+    return _dispatch(_apply_overrides(cfg, args), args, device, mode=args.mode)
+
+
+_TRACKS = {"pcn": main_pcn, "55": main_55}
+
+
+def main(argv: Optional[Sequence[str]] = None):
     """``python -m svdformer_pointsea_tpu_torch.cli <track> [flags]``; the
-    port has the ``pcn`` track."""
+    port has the ``pcn`` and ``55`` tracks."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "pcn":
-        raise SystemExit("usage: python -m svdformer_pointsea_tpu_torch.cli pcn [flags]; the "
-                         "port has the PCN track only (ShapeNet-55, GeoSpecNet, PointSea and "
-                         "KITTI are ROADMAP queue A items 10-13)")
-    main_pcn(argv[1:])
+    if not argv or argv[0] not in _TRACKS:
+        track = argv[0] if argv else ""
+        item = {"geospec": "item 11", "pointsea": "item 12", "kitti": "item 13"}.get(
+            track, "items 11-13")
+        raise SystemExit(f"usage: python -m svdformer_pointsea_tpu_torch.cli pcn|55 [flags]; "
+                         f"the port has the PCN and ShapeNet-55 tracks ({track or 'no track'}: "
+                         f"GeoSpecNet, PointSea and KITTI are ROADMAP queue A {item})")
+    return _TRACKS[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

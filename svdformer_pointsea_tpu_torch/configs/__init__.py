@@ -6,6 +6,9 @@ from svdformer_pointsea_tpu_torch.configs.base import (
     NetworkConfig,
     TrainConfig,
     pcn_config,
+    shapenet34_config,
+    shapenet55_config,
 )
 
-__all__ = ["Config", "DataConfig", "NetworkConfig", "TrainConfig", "pcn_config"]
+__all__ = ["Config", "DataConfig", "NetworkConfig", "TrainConfig", "pcn_config",
+           "shapenet34_config", "shapenet55_config"]

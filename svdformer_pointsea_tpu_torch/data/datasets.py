@@ -1,18 +1,21 @@
-"""The PCN dataset (semantics of svdformer_pointsea_tpu/data/datasets.py
-``PCNDataset`` / ``make_dataset``): the ShapeNet.json index, partial scans and
-complete clouds as PCD files at ``cfg.data``'s paths."""
+"""The PCN and ShapeNet-55 datasets (semantics of
+svdformer_pointsea_tpu/data/datasets.py ``PCNDataset``, ``ShapeNet55Dataset``
+and ``make_dataset``): PCN's ShapeNet.json index, partial scans and complete
+clouds as PCD files; ShapeNet-55's index files and complete clouds as
+``.npy`` files, at ``cfg.data``'s paths."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
+import os
 from typing import List
 
 import numpy as np
 
-from svdformer_pointsea_tpu_torch.data.io import read_pcd
-from svdformer_pointsea_tpu_torch.data.transforms import Compose
+from svdformer_pointsea_tpu_torch.data.io import read_npy, read_pcd
+from svdformer_pointsea_tpu_torch.data.transforms import Compose, pc_norm
 
 SUBSETS = ("train", "val", "test")
 
@@ -81,8 +84,40 @@ class PCNDataset:
         return s.taxonomy_id, s.model_id, self.transforms(data, rng=rng)
 
 
-def make_dataset(cfg, subset: str, seed: int = 0) -> PCNDataset:
+class ShapeNet55Dataset:
+    """ShapeNet-55 / 34 / Unseen-21 complete clouds, normalised into the unit
+    sphere; the partials are cropped online by the train step and by
+    ``eval_55``. ``<category_file>/train.txt`` indexes the train split and
+    ``test.txt`` every other subset (validation runs on the test split), one
+    ``<taxonomy>-<model>.npy`` a line, read from ``complete_points_path %
+    line``. The three benchmarks differ only by their index directory."""
+
+    def __init__(self, cfg, subset: str, seed: int = 0):
+        self.subset = "train" if subset == "train" else "test"
+        self.samples = []
+        with open(os.path.join(cfg.data.category_file, self.subset + ".txt")) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    tax, model = line.split("-")[0], line.split("-")[1].split(".")[0]
+                    self.samples.append(Sample(tax, model, [], cfg.data.complete_points_path % line))
+        logging.info("Indexed %d %s samples", len(self.samples), self.subset)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, idx: int, rng=None):
+        """(taxonomy id, model id, {"gtcloud"}); no random draw (``rng`` is
+        taken for the Loader's interface)."""
+        s = self.samples[idx]
+        gt = pc_norm(read_npy(s.gt_path).astype(np.float32)).astype(np.float32)
+        return s.taxonomy_id, s.model_id, {"gtcloud": gt}
+
+
+def make_dataset(cfg, subset: str, seed: int = 0):
+    if cfg.data.name == "ShapeNet55":
+        return ShapeNet55Dataset(cfg, subset, seed=seed)
     if cfg.data.name != "ShapeNet":
         raise NotImplementedError(f"dataset {cfg.data.name!r} is not ported: the port has PCN "
-                                  "only (ShapeNet-55 is ROADMAP queue A item 10, KITTI item 13)")
+                                  "and ShapeNet-55 (KITTI is ROADMAP queue A item 13)")
     return PCNDataset(cfg, subset, seed=seed)

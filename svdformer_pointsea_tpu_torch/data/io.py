@@ -1,5 +1,6 @@
-"""Point-cloud files: the PCD reader and writer (semantics of
-svdformer_pointsea_tpu/data/io.py ``_read_pcd_python`` and ``write_pcd``).
+"""Point-cloud files: the PCD reader and writer and the ``.npy`` reader
+(semantics of svdformer_pointsea_tpu/data/io.py ``_read_pcd_python``,
+``write_pcd`` and the ``.npy`` branch of ``IO.get``).
 
 The JAX package reads PCD through a native C++ parser with this numpy reader
 as its fallback; the port has the numpy reader only (the native one is listed
@@ -66,3 +67,8 @@ def write_pcd(file_path: str, points: np.ndarray) -> None:
     with open(file_path, "w") as f:
         f.write(header)
         np.savetxt(f, points, fmt="%.8g")
+
+
+def read_npy(file_path: str) -> np.ndarray:
+    """The array of a ``.npy`` file (ShapeNet-55's complete clouds, (N, 3))."""
+    return np.load(file_path)

@@ -1,7 +1,7 @@
-"""The numpy transforms of the PCN pipelines (semantics of
-svdformer_pointsea_tpu/data/transforms.py): every random draw comes from the
-``np.random.RandomState`` the caller passes, in the JAX package's order, so
-the same state gives the same arrays."""
+"""The numpy transforms of the PCN pipelines and ShapeNet-55's normalisation
+(semantics of svdformer_pointsea_tpu/data/transforms.py): every random draw
+comes from the ``np.random.RandomState`` the caller passes, in the JAX
+package's order, so the same state gives the same arrays."""
 
 from __future__ import annotations
 
@@ -23,6 +23,14 @@ def up_sample_points(ptcloud: np.ndarray, n_points: int, rng: np.random.RandomSt
         curr *= 2
     choice = rng.permutation(need)
     return np.concatenate([ptcloud, ptcloud[choice]])
+
+
+def pc_norm(pc: np.ndarray) -> np.ndarray:
+    """Centre on the centroid and scale into the unit sphere."""
+    centroid = np.mean(pc, axis=0)
+    pc = pc - centroid
+    m = np.max(np.sqrt(np.sum(pc**2, axis=1)))
+    return pc / m
 
 
 _MIRROR_X = np.diag([-1.0, 1.0, 1.0]).astype(np.float32)

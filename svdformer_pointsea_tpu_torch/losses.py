@@ -5,6 +5,8 @@ svdformer_pointsea_tpu/losses.py).
   FPS-subsampled ground truths; ``sqrt=True`` (PCN) averages sqrt distances
   (CD-L1-style), ``sqrt=False`` squared ones. Row weights (B,) give a
   weighted mean of per-sample means: pad rows (weight 0) add nothing.
+- ``get_loss_pm`` (ShapeNet-55): the same pyramid plus the one-way partial
+  matching term from the input partial to the finest prediction.
 - ``calc_cd``: evaluation CD, called as chamfer(gt, output) (the reference's
   argument order); ``calc_dcd``: density-aware CD.
 """
@@ -20,6 +22,7 @@ from svdformer_pointsea_tpu_torch.ops import (
     density_aware_chamfer,
     fps_subsample,
     fscore,
+    nn_squared_distance,
 )
 
 # sqrt of an exact zero has an infinite derivative; this floor keeps the
@@ -49,19 +52,43 @@ def chamfer_sqrt(p1: torch.Tensor, p2: torch.Tensor, weights: Optional[torch.Ten
             + _batch_mean(torch.sqrt(d2 + _SQRT_EPS), weights)) / 2
 
 
+def chamfer_single_side(p1: torch.Tensor, p2: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None):
+    """mean over p1 of the squared distance to p2 (one NN search, K1 on CUDA)."""
+    return _batch_mean(nn_squared_distance(p1, p2), weights)
+
+
+def chamfer_single_side_sqrt(p1: torch.Tensor, p2: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None):
+    """mean over p1 of the distance to p2."""
+    return _batch_mean(torch.sqrt(nn_squared_distance(p1, p2) + _SQRT_EPS), weights)
+
+
+def _pyramid(pcds_pred, gt: torch.Tensor, cd, weights: Optional[torch.Tensor]):
+    pc, p1, p2 = pcds_pred
+    gt_1 = fps_subsample(gt, p1.shape[1])
+    gt_c = fps_subsample(gt_1, pc.shape[1])
+    return [cd(pc, gt_c, weights), cd(p1, gt_1, weights), cd(p2, gt, weights)]
+
+
 def get_loss(pcds_pred, gt: torch.Tensor, sqrt: bool = True,
              weights: Optional[torch.Tensor] = None):
     """Pyramid chamfer loss of (coarse, fine1, fine2) against ``gt`` (B, M, 3),
     FPS-subsampled to each prediction's size (kernel K2 on CUDA).
     Returns (loss, [cdc, cd1, cd2])."""
-    cd = chamfer_sqrt if sqrt else chamfer
-    pc, p1, p2 = pcds_pred
-    gt_1 = fps_subsample(gt, p1.shape[1])
-    gt_c = fps_subsample(gt_1, pc.shape[1])
-    cdc = cd(pc, gt_c, weights)
-    cd1 = cd(p1, gt_1, weights)
-    cd2 = cd(p2, gt, weights)
+    cdc, cd1, cd2 = _pyramid(pcds_pred, gt, chamfer_sqrt if sqrt else chamfer, weights)
     return cdc + cd1 + cd2, [cdc, cd1, cd2]
+
+
+def get_loss_pm(pcds_pred, partial: torch.Tensor, gt: torch.Tensor, sqrt: bool = True,
+                weights: Optional[torch.Tensor] = None):
+    """:func:`get_loss`'s pyramid plus the partial matching term: the mean
+    distance (squared unless ``sqrt``) from each point of the input
+    ``partial`` (B, N, 3) to the finest prediction. Returns (loss, [cdc, cd1,
+    cd2]); the partial term is in the loss only."""
+    cdc, cd1, cd2 = _pyramid(pcds_pred, gt, chamfer_sqrt if sqrt else chamfer, weights)
+    pm = chamfer_single_side_sqrt if sqrt else chamfer_single_side
+    return cdc + cd1 + cd2 + pm(partial, pcds_pred[2], weights), [cdc, cd1, cd2]
 
 
 def calc_cd(output: torch.Tensor, gt: torch.Tensor, calc_f1: bool = False):

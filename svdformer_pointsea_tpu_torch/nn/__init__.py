@@ -1,4 +1,7 @@
-"""Neural building blocks and the SVDFormer model (channels-last)."""
+"""Neural building blocks, the SVDFormer model and the adversarial branch's
+discriminator (channels-last)."""
+
+from svdformer_pointsea_tpu_torch.nn.discriminator import SimplePointDiscriminator
 
 from svdformer_pointsea_tpu_torch.nn.flash import FlashAttention, flash_attention_train
 from svdformer_pointsea_tpu_torch.nn.layers import (
@@ -50,6 +53,7 @@ __all__ = [
     "BasicBlock",
     "ImageTrunk",
     "SVDFormer",
+    "SimplePointDiscriminator",
     "has_zero_gradient",
     "init_parameters",
 ]

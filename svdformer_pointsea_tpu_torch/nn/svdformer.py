@@ -99,11 +99,22 @@ class SVFNet(nn.Module):
         return f_g, coarse
 
 
+def _decoder(kind: str, hidden_dim: int, out_dim: int, ratio: int) -> nn.Module:
+    """An SDG decoder: two stacked attention blocks (``"sdg"``, PCN) or one
+    (``"attn"``, ShapeNet-55), hidden -> ``out_dim`` * ``ratio`` channels."""
+    if kind == "sdg":
+        return SDGDecoder(hidden_dim, out_dim, ratio)
+    if kind == "attn":
+        return SelfAttentionBlock(hidden_dim, out_dim * ratio, nhead=8)
+    raise ValueError(f"decoder must be sdg or attn, got {kind!r}")
+
+
 class SDG(nn.Module):
-    """Self-structure dual-generator refinement, upsampling by ``ratio``."""
+    """Self-structure dual-generator refinement, upsampling by ``ratio``;
+    ``decoder`` picks the decoders of both paths (:func:`_decoder`)."""
 
     def __init__(self, ratio: int, hidden_dim: int = 512, channel: int = 128,
-                 sigma: float = 0.2):
+                 sigma: float = 0.2, decoder: str = "sdg"):
         super().__init__()
         ch = self.channel = channel
         self.ratio, self.hidden_dim, self.sigma = ratio, hidden_dim, sigma
@@ -113,8 +124,8 @@ class SDG(nn.Module):
         self.conv_1 = nn.Linear(256, ch)
         self.embedding = SinusoidalPositionalEmbedding(hidden_dim)
         self.sa1 = SelfAttentionBlock(ch * 2, hidden_dim, nhead=8)
-        self.decoder1 = SDGDecoder(hidden_dim, ch, ratio)
-        self.decoder2 = SDGDecoder(hidden_dim, ch, ratio)
+        self.decoder1 = _decoder(decoder, hidden_dim, ch, ratio)
+        self.decoder2 = _decoder(decoder, hidden_dim, ch, ratio)
         self.mlpp = MLPConv(256, (256, hidden_dim))
         self.cross1 = CrossAttentionBlock(hidden_dim, hidden_dim, nhead=8)
         self.conv_ps = nn.Linear(ch * ratio * 2, ch * ratio)
@@ -165,22 +176,24 @@ class LocalEncoder(nn.Module):
 
 class SVDFormer(nn.Module):
     """forward(partial (B, N, 3), depth (B, 3, H, W)) -> (coarse (B, 256, 3),
-    fine1 (B, merge * step1, 3), fine2 (B, merge * step1 * step2, 3))."""
+    fine1 (B, merge * step1, 3), fine2 (B, merge * step1 * step2, 3)).
+    ``decoder`` is "sdg" (PCN) or "attn" (ShapeNet-55)."""
 
     def __init__(self, step1: int = 4, step2: int = 8, merge_points: int = 512,
-                 local_points: int = 512, view_distance: float = 0.7):
+                 local_points: int = 512, view_distance: float = 0.7, decoder: str = "sdg"):
         super().__init__()
         self.merge_points = merge_points
         self.encoder = SVFNet(view_distance)
         self.localencoder = LocalEncoder(local_points)
-        self.refine1 = SDG(step1, hidden_dim=768)
-        self.refine2 = SDG(step2, hidden_dim=512)
+        self.refine1 = SDG(step1, hidden_dim=768, decoder=decoder)
+        self.refine2 = SDG(step2, hidden_dim=512, decoder=decoder)
 
     @classmethod
     def from_config(cls, net) -> "SVDFormer":
         """Build from a ``configs.NetworkConfig``."""
         return cls(step1=net.step1, step2=net.step2, merge_points=net.merge_points,
-                   local_points=net.local_points, view_distance=net.view_distance)
+                   local_points=net.local_points, view_distance=net.view_distance,
+                   decoder=net.decoder)
 
     def forward(self, partial: torch.Tensor, depth: torch.Tensor):
         feat_g, coarse = self.encoder(partial, depth)

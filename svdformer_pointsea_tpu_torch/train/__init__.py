@@ -1,4 +1,5 @@
-"""Evaluation, the train step, the PCN orchestration, checkpoints and weight conversion."""
+"""Evaluation, the train steps, the PCN and ShapeNet-55 orchestration, the adversarial
+55 step, checkpoints and weight conversion."""
 
 from svdformer_pointsea_tpu_torch.train.checkpoint import (
     CheckpointManager,

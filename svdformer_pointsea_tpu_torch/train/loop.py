@@ -1,5 +1,6 @@
-"""PCN orchestration: model and train-state construction, ``train_net`` and
-``test_net`` (semantics of svdformer_pointsea_tpu/train/loop.py, PCN track).
+"""Orchestration of the PCN and ShapeNet-55 tracks: model and train-state
+construction, ``train_net`` and ``test_net`` (semantics of
+svdformer_pointsea_tpu/train/loop.py).
 
 The model is built on the CUDA card unless the caller names another device;
 without a card and without ``device``, :func:`build_model` (and so
@@ -18,12 +19,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from svdformer_pointsea_tpu_torch.data import Loader, make_dataset
+from svdformer_pointsea_tpu_torch.data import Loader, make_dataset, random_crop_params
 from svdformer_pointsea_tpu_torch.nn import SVDFormer, init_parameters
 from svdformer_pointsea_tpu_torch.nn.precision import mixed_precision
 from svdformer_pointsea_tpu_torch.render import make_renderer
 from svdformer_pointsea_tpu_torch.train.checkpoint import CheckpointManager, restore_checkpoint
-from svdformer_pointsea_tpu_torch.train.evaluate import eval_pcn
+from svdformer_pointsea_tpu_torch.train.evaluate import eval_55, eval_pcn
+from svdformer_pointsea_tpu_torch.train.gan import create_adv55_state, make_adv55_train_step
 from svdformer_pointsea_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
@@ -79,11 +81,12 @@ def check_supported(cfg) -> None:
     """Refuse, with the ROADMAP item that ports it, a configuration this
     port does not run: nothing is ignored silently."""
     t = cfg.train
-    if cfg.data.name != "ShapeNet":
+    if cfg.data.name not in ("ShapeNet", "ShapeNet55"):
         raise NotImplementedError(f"the {cfg.data.name} track is not ported (ROADMAP queue A "
-                                  "item 10 for ShapeNet-55, item 13 for KITTI)")
-    if t.adv_enabled:
-        raise NotImplementedError("the adversarial branch is not ported (ROADMAP queue A item 10)")
+                                  "item 13 for KITTI)")
+    if t.adv_enabled and cfg.data.name != "ShapeNet55":
+        raise NotImplementedError("the adversarial branch belongs to the ShapeNet-55 track; "
+                                  "GeoSpecNet's GAN is ROADMAP queue A item 11")
     if t.sp != 1:
         raise NotImplementedError(f"sp={t.sp}: sequence parallelism is multi-GPU work "
                                   "(ROADMAP queue A item 15)")
@@ -96,12 +99,19 @@ def check_supported(cfg) -> None:
 
 def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = None,
               device: Optional[str] = None):
-    """A full PCN training run: per epoch, the train loader's batches through
-    the train step at the reference LR schedule, validation through
-    ``eval_pcn`` with the val loader keyed by the same epoch, and the best /
-    periodic checkpoints; resumes from ``cfg.weights`` (a checkpoint of this
-    port) at the epoch after the saved one. ``cfg.train.precision`` "bf16"
-    runs the whole run, validation included, in bf16 mode.
+    """A full training run: per epoch, the train loader's batches through
+    the train step at the reference LR schedule, validation with the val
+    loader keyed by the same epoch, and the best / periodic checkpoints;
+    resumes from ``cfg.weights`` (a checkpoint of this port) at the epoch
+    after the saved one. ``cfg.train.precision`` "bf16" runs the whole run,
+    validation included, in bf16 mode.
+
+    PCN validates on the val split with ``eval_pcn``. ShapeNet-55 validates
+    on the test split with ``eval_55`` at ``cfg.data.mode``, and each batch's
+    crops (sizes and directions) are drawn on the host from a generator
+    keyed by (seed, epoch, 55), once a batch, so that a resumed run replays
+    the straight run; ``cfg.train.adv_enabled`` trains the discriminator
+    beside it (its state is not checkpointed).
 
     ``max_epochs`` / ``max_steps`` bound the run for smoke tests. Returns
     ``(state, best_metric)``.
@@ -110,17 +120,33 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
     device = resolve_device(device)
     set_seed(cfg.seed)
     tcfg = cfg.train
+    is_55 = cfg.data.name == "ShapeNet55"
     with mixed_precision(tcfg.precision == "bf16"):
+        # The Loader pads a short batch by repeating its rows, as the
+        # reference duplicates an odd batch on the 55 track.
         train_loader = Loader(make_dataset(cfg, "train", seed=cfg.seed), tcfg.batch_size,
                               shuffle=True, seed=cfg.seed, num_workers=cfg.data.num_workers)
-        val_loader = Loader(make_dataset(cfg, "val", seed=cfg.seed), tcfg.batch_size,
-                            shuffle=False, num_workers=cfg.data.num_workers)
+        val_loader = Loader(make_dataset(cfg, "test" if is_55 else "val", seed=cfg.seed),
+                            tcfg.batch_size, shuffle=False, num_workers=cfg.data.num_workers)
         model = build_model(cfg, device=device, seed=cfg.seed)
         state = init_state(cfg, model)
         logging.info("Parameters: %d", sum(p.numel() for p in model.parameters()))
-        step = make_train_step(model, state.optimizer, tcfg.sqrt_loss, make_renderer(cfg).get_img)
-        lr_fn = make_lr_fn(cfg)
+        render_fn = make_renderer(cfg).get_img
         dev = next(model.parameters()).device
+        if tcfg.adv_enabled:
+            adv = create_adv55_state(cfg, dev, seed=cfg.seed)
+            adv_step = make_adv55_train_step(
+                model, state.optimizer, sqrt_loss=tcfg.sqrt_loss, lambda_g=tcfg.adv_lambda_g,
+                d_steps=tcfg.adv_d_steps, render_fn=render_fn, crop_n_out=cfg.data.n_points)
+
+            def step(state, *batch_and_lr):
+                state, _, metrics = adv_step(state, adv, *batch_and_lr, tcfg.adv_d_lr)
+                return state, metrics
+        else:
+            step = make_train_step(model, state.optimizer, tcfg.sqrt_loss, render_fn,
+                                   partial_matching=tcfg.partial_matching,
+                                   crop_n_out=cfg.data.n_points if is_55 else None)
+        lr_fn = make_lr_fn(cfg)
 
         ckpts = CheckpointManager(cfg.out_path, tcfg.save_freq)
         start_epoch = 1
@@ -137,6 +163,8 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
             # Data randomness derives from (seed, epoch): a resumed run
             # replays the straight run's batches exactly.
             train_loader.set_epoch(epoch)
+            crop_rng = np.random.RandomState(
+                np.random.SeedSequence([cfg.seed, epoch, 55]).generate_state(1)[0])
             epoch_t0 = time.time()
             timer.reset()
             losses = AverageMeter(["cdc", "cd1", "cd2"])
@@ -156,12 +184,17 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
             for batch in train_loader:
                 timer.mark_data()
                 lr = lr_fn(global_step + 1, epoch - 1)
-                partial = torch.as_tensor(batch.data["partial_cloud"], device=dev)
                 gt = torch.as_tensor(batch.data["gtcloud"], device=dev)
                 # One device: every row, the loader's repeated pad rows too,
                 # has weight 1, as the JAX package's pad_batch gives them.
-                weights = torch.ones(partial.shape[0], device=dev)
-                state, metrics = step(state, partial, gt, weights, lr)
+                weights = torch.ones(gt.shape[0], device=dev)
+                if is_55:
+                    num_crop, direction = random_crop_params(crop_rng, *gt.shape[:2])
+                    state, metrics = step(state, gt, torch.as_tensor(direction, device=dev),
+                                          torch.as_tensor(num_crop, device=dev), weights, lr)
+                else:
+                    partial = torch.as_tensor(batch.data["partial_cloud"], device=dev)
+                    state, metrics = step(state, partial, gt, weights, lr)
                 global_step += 1
                 # Reading the metrics now would wait for the step; they are
                 # read one step late (--progress) or after the epoch.
@@ -191,7 +224,8 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
             # The val loader is keyed by the true epoch too, so validation (and
             # with it the best checkpoint) is the same in a resumed run.
             val_loader.set_epoch(epoch)
-            val_cd = eval_pcn(cfg, model, val_loader, logger, epoch)
+            evaluate = eval_55 if is_55 else eval_pcn
+            val_cd = evaluate(cfg, model, val_loader, logger, epoch)
             improved = ckpts.maybe_save(state, epoch, val_cd)
             logging.info("Epoch %d val CD=%.4f best=%.4f%s", epoch, val_cd, ckpts.best_metric,
                          " *" if improved else "")
@@ -209,10 +243,12 @@ def load_weights_into_state(state: TrainState, cfg) -> TrainState:
     return state
 
 
-def test_net(cfg, device: Optional[str] = None) -> float:
+def test_net(cfg, mode: Optional[str] = None, device: Optional[str] = None) -> float:
     """Evaluation of ``cfg.weights`` on the test split: the per-category
-    CD-L1×10³ / DCD / F1 table; returns the mean CD. ``cfg.train.precision``
-    "bf16" evaluates in bf16 mode."""
+    table (PCN: CD-L1×10³ / DCD / F1; ShapeNet-55: CD-L2×10³ / DCD / F1 over
+    the 8 corners at crop difficulty ``mode``, default ``cfg.data.mode``);
+    returns the mean CD. ``cfg.train.precision`` "bf16" evaluates in bf16
+    mode."""
     check_supported(cfg)
     device = resolve_device(device)
     set_seed(cfg.seed)
@@ -221,5 +257,7 @@ def test_net(cfg, device: Optional[str] = None) -> float:
         state = load_weights_into_state(init_state(cfg, model), cfg)
         loader = Loader(make_dataset(cfg, "test", seed=cfg.seed), cfg.train.batch_size,
                         shuffle=False, num_workers=cfg.data.num_workers)
+        if cfg.data.name == "ShapeNet55":
+            return eval_55(cfg, state.model, loader, mode=mode)
         return eval_pcn(cfg, state.model, loader)
 

@@ -1,5 +1,5 @@
-"""Train state, optimizer, LR schedule and the PCN train step (semantics of
-svdformer_pointsea_tpu/train/state.py).
+"""Train state, optimizer, LR schedule and the train step of the PCN and
+ShapeNet-55 tracks (semantics of svdformer_pointsea_tpu/train/state.py).
 
 The LR is the reference's composite schedule: a linear warmup over the first
 ``warmup_steps`` optimizer steps, then a per-epoch MultiStep (or Step) decay.
@@ -10,11 +10,12 @@ the optimizer's parameter groups, as the JAX package injects it into Adam.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 
-from svdformer_pointsea_tpu_torch.losses import get_loss
+from svdformer_pointsea_tpu_torch.data.crop import random_partial
+from svdformer_pointsea_tpu_torch.losses import get_loss, get_loss_pm
 from svdformer_pointsea_tpu_torch.nn.layers import bn_row_weights
 from svdformer_pointsea_tpu_torch.train.evaluate import disable_tf32
 
@@ -58,28 +59,37 @@ def make_optimizer(params, weight_decay: float = 0.0,
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, sqrt_loss: bool,
-                    render_fn: Callable[[torch.Tensor], torch.Tensor]):
-    """The PCN train step, with the depth render fused in:
-    ``step(state, partial, gt, weights, lr) -> (state, metrics)``.
+                    render_fn: Callable[[torch.Tensor], torch.Tensor],
+                    partial_matching: bool = False, crop_n_out: Optional[int] = None):
+    """The train step, with the depth render fused in. PCN:
+    ``step(state, partial, gt, weights, lr) -> (state, metrics)``. With
+    ``crop_n_out`` (ShapeNet-55) the step crops its own partials first:
+    ``step(state, gt, direction, num_crop, weights, lr)`` takes the (B, 3)
+    directions and (B,) crop sizes drawn on the host and runs
+    :func:`random_partial` to ``crop_n_out`` points.
 
     ``weights`` (B,) is the row mask (0 for pad rows): it weights the loss and,
     through :func:`bn_row_weights`, the BatchNorm batch moments. The step
-    renders ``partial`` without gradient, runs ``model`` in train mode, takes
-    the pyramid loss, back-propagates and takes one Adam step at ``lr``; the
-    model's parameters, running statistics and the optimizer's moments are
-    updated in place. metrics = {'loss', 'cdc', 'cd1', 'cd2'}, 0-d tensors.
-    TF32 is turned off, as for evaluation: the step is f32.
+    renders the partial without gradient, runs ``model`` in train mode, takes
+    the pyramid loss (with ``partial_matching``, :func:`get_loss_pm`'s),
+    back-propagates and takes one optimizer step at ``lr``; the model's
+    parameters, running statistics and the optimizer's moments are updated in
+    place. metrics = {'loss', 'cdc', 'cd1', 'cd2'}, 0-d tensors. TF32 is
+    turned off, as for evaluation: the step is f32.
     """
     disable_tf32()
 
-    def step(state: TrainState, partial: torch.Tensor, gt: torch.Tensor,
-             weights: torch.Tensor, lr: float):
+    def update(state: TrainState, partial: torch.Tensor, gt: torch.Tensor,
+               weights: torch.Tensor, lr: float):
         with torch.no_grad():
             depth = render_fn(partial)
         model.train()
         with bn_row_weights(weights):
             outs = model(partial, depth)
-        loss, parts = get_loss(outs, gt, sqrt=sqrt_loss, weights=weights)
+        if partial_matching:
+            loss, parts = get_loss_pm(outs, partial, gt, sqrt=sqrt_loss, weights=weights)
+        else:
+            loss, parts = get_loss(outs, gt, sqrt=sqrt_loss, weights=weights)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for group in optimizer.param_groups:
@@ -90,4 +100,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, sq
             "cd2": parts[2].detach()}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
-    return step
+    if crop_n_out is None:
+        return update
+
+    def crop_step(state: TrainState, gt: torch.Tensor, direction: torch.Tensor,
+                  num_crop: torch.Tensor, weights: torch.Tensor, lr: float):
+        return update(state, random_partial(gt, direction, num_crop, crop_n_out), gt, weights, lr)
+
+    return crop_step

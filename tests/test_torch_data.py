@@ -105,5 +105,5 @@ def test_loader_batches_match_jax_bit_for_bit(tree, subset):
 
 def test_make_dataset_refuses_other_tracks(tree):
     cfg, _ = _configs(tree)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_dataset(cfg.replace(data=dataclasses.replace(cfg.data, name="ShapeNet55")), "train")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make_dataset(cfg.replace(data=dataclasses.replace(cfg.data, name="KITTI")), "train")

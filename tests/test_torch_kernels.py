@@ -43,6 +43,14 @@ from svdformer_pointsea_tpu_torch.ops.fps import (
 FPS_SITES = [(2048, 512), (512, 128), (2304, 512), (16384, 2048), (2048, 256)]
 NN_SITES = [(512, 2048), (2048, 2048), (256, 256), (16384, 16384)]
 H100_SMS = 132
+# The ShapeNet-55 track's sites at its batch of 16, train step and evaluation:
+# K2 on the crop's masked 8192-point block, SA1, SA2, the LocalEncoder, the
+# merge, the loss pyramid, and the eval crops' 6144 / 4096 kept points; K1 in
+# SDG1 and SDG2, the loss pyramid, the partial-matching term and the metrics.
+B_55 = 16
+FPS_SITES_55 = [(8192, 2048), (2048, 512), (512, 128), (2048, 1024), (2304, 1024), (2048, 256),
+                (6144, 2048), (4096, 2048)]
+NN_SITES_55 = [(1024, 2048), (2048, 2048), (256, 256), (8192, 8192), (2048, 8192)]
 
 
 @pytest.fixture
@@ -266,6 +274,23 @@ def test_fps_launch_plan_rules(batch):
     assert fps_launch_plan(10 * batch, 16384, 2048, H100_SMS).cluster == 2  # in waves
 
 
+def test_launch_plans_at_the_55_sites():
+    """Every K1 and K2 site of the 55 track gets a plan its kernel takes at
+    B 16, with every cluster resident at once (B x C <= SMs): K2 on 8 CTAs a
+    sample from 2049 points (the masked crop block, the merge and the eval
+    crops), on one below; K1 splits the targets of every site below 16384
+    queries."""
+    for n, m in FPS_SITES_55:
+        plan = fps_launch_plan(B_55, n, m, H100_SMS)
+        check_fps_plan(n, plan)
+        assert B_55 * plan.cluster <= H100_SMS
+        assert plan.cluster == (8 if n >= 2049 else 1), (n, plan)
+    for n, m in NN_SITES_55:
+        plan = nn_launch_plan(B_55, n, m, H100_SMS)
+        check_nn_plan(m, plan)
+        assert plan.splits > 1, (n, m, plan)
+
+
 @pytest.mark.parametrize("n,plan", [
     (2048, FpsPlan(3, 128, 16)),     # no such cluster size
     (2048, FpsPlan(1, 256, 8)),      # no such instance
@@ -407,6 +432,55 @@ def test_fps_kernel_clusters_match_plain(cuda, cluster):
         x[2:] = torch.round(x[2:] * 4) / 4
         plan = fps_launch_plan(4, n, m, H100_SMS, cluster=max(cluster, 2) if n > 8192 else cluster)
         assert torch.equal(_fps_kernel(x, m, plan), furthest_point_sample_ref(x, m)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", NN_SITES_55)
+def test_nn_distance_kernel_matches_plain_at_the_55_sites(cuda, n, m):
+    a = torch.rand(B_55, n, 3, device="cuda", generator=cuda) - 0.5
+    b = torch.rand(B_55, m, 3, device="cuda", generator=cuda) - 0.5
+    d, i = nn_one_way(a, b)
+    d2, i2 = nn_one_way(a, b)
+    dp, ip = nn_one_way_plain(a, b)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+    assert torch.equal(d, d2) and torch.equal(i, i2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", FPS_SITES_55)
+def test_fps_kernel_matches_plain_at_the_55_sites(cuda, n, m):
+    x = torch.rand(B_55, n, 3, device="cuda", generator=cuda) - 0.5
+    got = furthest_point_sample(x, m)
+    assert torch.equal(got, furthest_point_sample_ref(x, m))
+    assert torch.equal(got, furthest_point_sample(x, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kept", [2048, 4096, 6144])
+def test_fps_kernel_on_the_masked_crop_block(cuda, kept):
+    """The train step's crop: 8192 points sorted by distance to a direction,
+    the kept block shifted to the front and the rest zeroed. K2 on its
+    cluster of 8 CTAs skips the zero rows as the plain version does (the
+    origin-skip rule, across the CTAs' point ranges), so the partial is
+    bit-equal, and no zero row is picked."""
+    from svdformer_pointsea_tpu_torch.data import crop_random_resampled, random_partial
+
+    gt = torch.rand(B_55, 8192, 3, device="cuda", generator=cuda) - 0.5
+    direction = torch.nn.functional.normalize(
+        torch.randn(B_55, 3, device="cuda", generator=cuda), dim=-1)
+    num_crop = torch.full((B_55,), 8192 - kept, dtype=torch.int32, device="cuda")
+    num_crop[::2] = 8192 - kept + torch.arange(B_55 // 2, device="cuda", dtype=torch.int32)
+    before = kernels.launches["fps"]
+    got = random_partial(gt, direction, num_crop, 2048)
+    again = random_partial(gt, direction, num_crop, 2048)
+    assert kernels.launches["fps"] == before + 2
+    with kernels.reference_ops():
+        want = random_partial(gt, direction, num_crop, 2048)
+        want_both = crop_random_resampled(gt, direction, num_crop, 2048)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert (got.square().sum(-1) > 1e-3).all()
+    for g, w in zip(crop_random_resampled(gt, direction, num_crop, 2048), want_both):
+        assert torch.equal(g, w)
 
 
 # The f32 K3's cases: q x 8 (a large spread of scores, the running max moving

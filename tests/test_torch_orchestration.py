@@ -172,9 +172,18 @@ def test_main_pcn_refuses_what_is_not_ported(argv, message):
         cli.main_pcn(argv, device="cpu")
 
 
-def test_cli_takes_the_pcn_track_only():
-    with pytest.raises(SystemExit, match="PCN track only"):
-        cli.main(["55"])
+def test_cli_takes_the_pcn_track_only(monkeypatch):
+    """The tracks the port has dispatch (``pcn`` and ``55``, to their
+    main_*); the others refuse with the ROADMAP item that ports them."""
+    calls = []
+    monkeypatch.setattr(port_train, "test_net", lambda cfg, device=None, mode=None: calls.append(
+        (cfg.data.name, mode)))
+    cli.main(["55", "--test", "--weights", "w.pt", "--mode", "hard"])
+    cli.main(["pcn", "--test", "--weights", "w.pt"])
+    assert calls == [("ShapeNet55", "hard"), ("ShapeNet", None)]
+    for track, item in (("kitti", "item 13"), ("geospec", "item 11"), ("pointsea", "item 12")):
+        with pytest.raises(SystemExit, match=item):
+            cli.main([track])
 
 
 def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
@@ -188,8 +197,10 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
                 lambda: port_train.test_net(cfg.replace(weights="w.pt"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run()
-    for train, item in (({"sp": 2}, "item 15"), ({"dp": "shard_map"}, "item 15"),
-                        ({"adv_enabled": True}, "item 10")):
+    for train, item in (({"sp": 2}, "item 15"), ({"dp": "shard_map"}, "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             port_train.train_net(cfg.replace(train=dataclasses.replace(cfg.train, **train)),
                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):  # the KITTI track
+        port_train.train_net(cfg.replace(data=dataclasses.replace(cfg.data, name="KITTI")),
+                             device="cpu")
