@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's PCN and ShapeNet-55 paths on one CUDA card:
-evaluation, the train steps in f32 and in bf16 mode, the adversarial 55 step,
-and the ``main_pcn`` / ``main_55`` entry points.
+"""Drive the PyTorch port's PCN, ShapeNet-55 and GeoSpecNet paths on one CUDA
+card: evaluation, the train steps in f32 and in bf16 mode, the adversarial 55
+step, GeoSpecNet's GAN step, and the ``main_pcn`` / ``main_55`` /
+``main_geospec`` entry points.
 
     python3 chip_smoke.py
 
@@ -42,7 +43,8 @@ Phases (any failure exits non-zero):
    launch counters zeroed just before and read just after; every kernel of
    the path must have launched. The same batches run under
    ``reference_ops()`` (plain versions only); per-sample CD-L1×10³ must agree
-   within 0.01;
+   within 0.01, and a repeat of each batch must give the same bits (the
+   port's scatters add in a fixed order, ``ops/scatter.py``);
 5. train main path, f32: two full-width models from ``build_model`` (seed 0)
    take one ``make_train_step`` step on one synthetic batch of 12 (3 pad
    rows), one with the kernels (counters zeroed before, read after: K1, K2,
@@ -92,9 +94,21 @@ Phases (any failure exits non-zero):
    train step (crop, render, forward, ``get_loss_pm``, AdamW) and one
    adversarial step with the kernels and under ``reference_ops()``, with
    exact launch counts and the PCN bounds; ``eval_55`` over the 8 corners
-   (per sample and corner |ΔCD-L2×10³| <= 0.01); ``main_55 --epochs 1`` on a
-   synthetic ShapeNet-55 tree, then ``--test`` in f32 and bf16; the 55 train
-   ms/step, eval completions/s and K1 / K2 per site.
+   (per sample and corner |ΔCD-L2×10³| <= 0.01, default algorithms, repeats
+   bit-equal); ``main_55 --epochs 1`` on a synthetic ShapeNet-55 tree, then
+   ``--test`` in f32 and bf16; the 55 train ms/step, eval completions/s and
+   K1 / K2 per site;
+10. GeoSpecNet at full width (``geospec_config()``: the spectral point
+   encoder, SDG decoders, PointDiscriminator, PCN sizes): one f32 and one
+   bf16 GAN step (render, one generator forward, D's step on gt and the
+   detached P2, then the generator's step on ``get_loss_pm`` + 0.05 BCE
+   through the updated D) with the kernels and under ``reference_ops()``
+   from one state, deterministic algorithms: exact launch counts, every loss
+   within the PCN bounds, G's and D's first moments too; one eval batch of 8
+   under the default algorithms (|ΔCD-L1×10³| <= 0.01, exact launches,
+   repeat bit-equal); ``main_geospec --epochs 1`` on a synthetic PCN tree,
+   then ``--test``; GAN ms/step at B 12 in f32 and bf16 (kernels and plain
+   in turns), peak memory, a profile of the f32 GAN step, eval completions/s.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -114,6 +128,7 @@ import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -229,6 +244,22 @@ BF16_STEP_55 = dict(F32_STEP_55, flash_attn_stats=0, flash_attn_bwd_dkv=0, flash
                     flash_attn_bwd_dq_bf16=6)
 # The synthetic ShapeNet-55 tree of main_55: 2 batches of 16 an epoch, 1 test batch.
 TREE_MODELS_55 = {"train": 32, "test": 16}
+# GeoSpecNet (geospec_config(): PCN data and sizes, the spectral point
+# encoder, SDG decoders, PointDiscriminator). Launches of one GAN step: the
+# generator's forward as SVDFormer's (K1 in SDG1 and SDG2, K2 at SA1, SA2,
+# the LocalEncoder and the merge, the 12 flash sites), get_loss_pm's pyramid
+# (K1 both ways at 256², 2048², 16384², one way 2048 -> 16384; K2 16384 ->
+# 2048 -> 256); the discriminator and the spectral adapters' kNN (torch.topk
+# over 128 points) launch none.
+GEO_STEP = dict(F32_STEP_55, nn_distance=9, fps=6, flash_attn_stats=12, flash_attn_bwd_dkv=12,
+                flash_attn_bwd_dq=12, split_bf16x3=48)
+GEO_BF16_STEP = dict(BF16_STEP_LAUNCHES, nn_distance=9)
+# One GeoSpecNet eval batch of 8: K1 in SDG1, SDG2 and both ways of calc_cd
+# and calc_dcd, K2 4, K3 12 with the split of q, k, v.
+GEO_EVAL = {name: 0 for name in F32_STEP_55}
+GEO_EVAL.update(nn_distance=6, fps=4, flash_attn=12, split_bf16x3=36)
+# The synthetic PCN tree of main_geospec: 1 batch of 12 an epoch.
+TREE_MODELS_GEO = {"train": 12, "val": 8, "test": 8}
 SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
     "nn_distance": ("svdformer_pointsea_tpu_torch/csrc/nn_distance.cu",
                     "svdformer_pointsea_tpu/ops/nn_pallas.py:59"),
@@ -889,19 +920,23 @@ def eval_phase(torch, kernels, cfg, model, batches):
     print(f"mean CD-L1×10³: kernels {mean_cd:.6f}, plain {mean_cd_ref:.6f}")
 
     eval_fn = make_pcn_eval_fn(model, make_renderer(cfg))
-    worst = 0.0
+    worst, repeats = 0.0, []
     for batch in batches:
         partial = torch.as_tensor(batch.data["partial_cloud"], device="cuda")
         gt = torch.as_tensor(batch.data["gtcloud"], device="cuda")
         m_k = eval_fn(partial, gt)[:, :batch.valid].cpu()
+        repeats.append(torch.equal(eval_fn(partial, gt)[:, :batch.valid].cpu(), m_k))
         with kernels.reference_ops():
             m_r = eval_fn(partial, gt)[:, :batch.valid].cpu()
         if not (torch.isfinite(m_k).all() and torch.isfinite(m_r).all()):
             fail("non-finite CD / DCD / F1")
         worst = max(worst, (m_k[0] - m_r[0]).abs().max().item())
-    print(f"per-sample |ΔCD-L1×10³| kernels vs plain: max {worst:.3e} (gate {CD_GATE})")
+    print(f"per-sample |ΔCD-L1×10³| kernels vs plain (default algorithms): max {worst:.3e} (gate "
+          f"{CD_GATE}); repeat of each batch bit-equal {repeats}")
     if not worst <= CD_GATE:
         fail(f"CD-L1×10³ differs by {worst} between kernels and plain ops")
+    if not all(repeats):
+        fail("a repeat of the PCN evaluation gave other bits")
 
     partial = torch.as_tensor(batches[0].data["partial_cloud"], device="cuda")
     render = make_renderer(cfg)
@@ -942,11 +977,12 @@ def train_phase(torch, kernels, cfg, batch):
           f"B {partial.shape[0]} ({batch.valid} rows of weight 1), partial {partial.shape[1]}, "
           f"gt {gt.shape[1]}")
 
-    # Both steps run with PyTorch's deterministic algorithms (index_add_
-    # without atomics in the render and the chamfer backward, deterministic
-    # cuDNN), so that the kernels' sum order is the only difference between
-    # them: with atomics, two kernel runs alone can differ by more than the
-    # bound in a first-moment leaf (the run-to-run noise printed below).
+    # Both steps run with PyTorch's deterministic algorithms (cuDNN's backward
+    # convolutions and the image trunk's max-pool backward add with atomics
+    # otherwise; the port's own scatters add in a fixed order either way), so
+    # that the kernels' sum order is the only difference between them: with
+    # atomics, two kernel runs alone can differ by more than the bound in a
+    # first-moment leaf (the run-to-run noise printed below).
     torch.use_deterministic_algorithms(True, warn_only=True)
     lr = lr_fn(1, 0)  # lr_fn(global_step + 1, epoch - 1) at step 0 of epoch 1
     model_k, state_k, step_k = runs["kernels"]
@@ -1711,19 +1747,6 @@ def points_55_phase(torch, ops, kernels, g) -> Dict[str, float]:
     return worst
 
 
-def deterministic_pair(torch, kernels, fn):
-    """``fn()`` with the kernels and under reference_ops(), both with
-    PyTorch's deterministic algorithms (index_add_ without atomics)."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        got = fn()
-        with kernels.reference_ops():
-            want = fn()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    return got, want
-
-
 def batch_55(torch, seed: int):
     """One 55 train batch of 16 on the card: gt, the host's crop draw (as
     train_net draws it) and row weights (3 pad rows of weight 0)."""
@@ -1807,13 +1830,11 @@ def train_55_phase(torch, kernels, cfg, batch, precision: str):
 def eval_55_phase(torch, kernels, cfg, model, gt, precision: str, modes):
     """eval_55 over the 8 corners of one batch of 16 at ``modes[0]`` (the
     counted main path), then make_55_eval_fn at every mode of ``modes`` with
-    the kernels and under reference_ops(), both with deterministic
-    algorithms: per sample and corner |ΔCD-L2×10³| <= CD_GATE_55, DCD and F1
-    finite. The render's index_add_ adds with atomics in no fixed order under
-    the default algorithms, and a last-bit change of the coarse points can
-    flip a pick of the merge's FPS: that run-to-run noise (the kernels with
-    the default algorithms against the deterministic run) is printed beside
-    the gate, not gated, as the train phases print theirs."""
+    the kernels and under reference_ops(), with the default algorithms: per
+    sample and corner |ΔCD-L2×10³| <= CD_GATE_55, DCD and F1 finite, and a
+    repeat with the kernels bit-equal (the render's splat adds in a fixed
+    order: a last-bit change of the coarse points could flip a pick of the
+    merge's FPS)."""
     from svdformer_pointsea_tpu_torch.data import FIXED_CORNERS
     from svdformer_pointsea_tpu_torch.nn import mixed_precision
     from svdformer_pointsea_tpu_torch.render import make_renderer
@@ -1838,18 +1859,23 @@ def eval_55_phase(torch, kernels, cfg, model, gt, precision: str, modes):
             eval_fn = make_55_eval_fn(model, make_renderer(cfg),
                                       int(cfg.data.gt_points * CROP_RATIO[mode]),
                                       n_sample=cfg.data.n_points)
-            m_k, m_r = deterministic_pair(torch, kernels, lambda: eval_fn(gt, corners).cpu())
-            noise = (eval_fn(gt, corners).cpu()[:, 0] - m_k[:, 0]).abs().max().item()
+            m_k = eval_fn(gt, corners).cpu()
+            again = eval_fn(gt, corners).cpu()
+            with kernels.reference_ops():
+                m_r = eval_fn(gt, corners).cpu()
             if not (torch.isfinite(m_k).all() and torch.isfinite(m_r).all()):
                 fail(f"non-finite 55 {precision} CD / DCD / F1 at {mode}")
             worst = (m_k[:, 0] - m_r[:, 0]).abs().max().item()
+            noise = (again[:, 0] - m_k[:, 0]).abs().max().item()
             print(f"55 {precision} eval {mode}, 8 corners x {B_55}: per-sample |ΔCD-L2×10³| "
-                  f"kernels vs plain (deterministic algorithms) max {worst:.3e} (gate "
-                  f"{CD_GATE_55}); run-to-run noise with atomics {noise:.3e}; mean CD-L2×10³ "
-                  f"{m_k[:, 0].mean().item():.4f}, DCD {m_k[:, 1].mean().item():.4f}, F1 "
-                  f"{m_k[:, 2].mean().item():.4f}")
+                  f"kernels vs plain (default algorithms) max {worst:.3e} (gate {CD_GATE_55}); "
+                  f"repeat bit-equal {torch.equal(again, m_k)} (run-to-run noise {noise:.3e}); "
+                  f"mean CD-L2×10³ {m_k[:, 0].mean().item():.4f}, DCD "
+                  f"{m_k[:, 1].mean().item():.4f}, F1 {m_k[:, 2].mean().item():.4f}")
             if not worst <= CD_GATE_55:
                 fail(f"55 {precision} CD-L2×10³ at {mode} differs by {worst}")
+            if not torch.equal(again, m_k):
+                fail(f"a repeat of the 55 {precision} evaluation at {mode} gave other bits")
     return launches
 
 
@@ -1962,12 +1988,13 @@ def entry_55_phase(torch, kernels) -> Dict[str, Dict[str, int]]:
                 with mixed_precision(precision == "bf16"):
                     for batch in Loader(make_dataset(cfg, "test"), B_55):
                         gt = torch.as_tensor(batch.data["gtcloud"], device="cuda")
-                        m_k, m_r = deterministic_pair(
-                            torch, kernels, lambda: eval_fn(gt, corners)[:, :, :batch.valid].cpu())
+                        m_k = eval_fn(gt, corners)[:, :, :batch.valid].cpu()
+                        with kernels.reference_ops():
+                            m_r = eval_fn(gt, corners)[:, :, :batch.valid].cpu()
                         if not (torch.isfinite(m_k).all() and torch.isfinite(m_r).all()):
                             fail("non-finite 55 test metrics")
                         worst = max(worst, (m_k[:, 0] - m_r[:, 0]).abs().max().item())
-                print(f"55 test set per-sample |ΔCD-L2×10³| kernels vs plain (deterministic "
+                print(f"55 test set per-sample |ΔCD-L2×10³| kernels vs plain (default "
                       f"algorithms), {precision}: max {worst:.3e} (gate {CD_GATE_55})")
                 if not worst <= CD_GATE_55:
                     fail(f"55 {precision} test CD differs by {worst} between kernels and plain")
@@ -2048,6 +2075,197 @@ def times_55(torch, ops, kernels, cfg, batch, eval_gt, g) -> Dict[str, float]:
     return totals
 
 
+def geospec_gan_phase(torch, kernels, cfg, batch, precision: str):
+    """One GeoSpecNet GAN step in f32 or bf16 mode with the kernels (the
+    counted main path) and one under reference_ops(), from one state (seed
+    SEED), both with PyTorch's deterministic algorithms (cuDNN's backward
+    convolutions and the trunk's max-pool backward add with atomics
+    otherwise): exact launches (GEO_STEP / GEO_BF16_STEP), every metric
+    within the precision's loss bound, the first moments of G's and D's Adam
+    within the PCN bounds, D's running means moved. Returns the launches and
+    the kernels' state."""
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import build_model, make_lr_fn
+    from svdformer_pointsea_tpu_torch.train.gan import create_gan_state, make_gan_train_step
+
+    bf16 = precision == "bf16"
+    lr = make_lr_fn(cfg)(1, 0)
+    step = make_gan_train_step(cfg.train.gan_weight, make_renderer(cfg).get_img)
+    states = {mode: create_gan_state(cfg, build_model(cfg, seed=SEED), seed=SEED)
+              for mode in ("kernels", "plain")}
+    with mixed_precision(bf16):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            kernels.reset_launches()
+            states["kernels"], m_k = step(states["kernels"], *batch, lr, lr)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            with kernels.reference_ops():
+                states["plain"], m_r = step(states["plain"], *batch, lr, lr)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    if kernels.launches != launches:
+        fail("a kernel launched under reference_ops()")
+    label = f"geospec {precision} GAN step"
+    want = GEO_BF16_STEP if bf16 else GEO_STEP
+    print(f"{label} main path launches: {launches}")
+    if launches != want:
+        fail(f"{label} launches {launches}, expected {want}")
+    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+    for key in ("g_loss", "d_loss", "recon", "gan", "cdc", "cd1", "cd2"):
+        a, b = m_k[key].item(), m_r[key].item()
+        rel = abs(a - b) / abs(b)
+        print(f"{label} {key}: kernels {a:.8f}, plain {b:.8f}, rel |Δ| {rel:.3e} (bound "
+              f"{loss_rtol})")
+        if not (math.isfinite(a) and rel <= loss_rtol):
+            fail(f"{label} {key} differs: {a} vs {b}")
+    k, r = states["kernels"], states["plain"]
+    kw = dict(rtol=BF16_MU_RTOL, apart=(BF16_TRUNK, BF16_TRUNK_MU_RTOL)) if bf16 else {}
+    worst, noise, trunk = first_moment_gap(torch, (k.model, k, None), (r.model, r, None),
+                                           check=True, **kw)
+    worst_d, noise_d, _ = first_moment_gap(
+        torch, (k.d_model, SimpleNamespace(optimizer=k.d_optimizer), None),
+        (r.d_model, SimpleNamespace(optimizer=r.d_optimizer), None), check=True, **kw)
+    print(f"{label} Adam first moment kernels vs plain: G worst leaf {worst[1]} rel ‖Δ‖ "
+          f"{worst[0]:.3e}" + (f" (bf16 image trunk {trunk[1]} {trunk[0]:.3e})" if bf16 else "")
+          + f", zero-gradient max |mu| {noise[0]:.3e} ({noise[1]}); D worst leaf {worst_d[1]} "
+          f"{worst_d[0]:.3e}, zero-gradient max |mu| {noise_d[0]:.3e} ({noise_d[1]}); bound "
+          f"{kw.get('rtol', MU_RTOL)}")
+    stats = [b for n, b in k.d_model.named_buffers() if n.endswith("running_mean")]
+    if any(torch.equal(b, torch.zeros_like(b)) for b in stats):
+        fail(f"{label}: a running mean of D did not move")
+    return launches, states["kernels"]
+
+
+def geospec_eval_phase(torch, kernels, cfg, model, batch):
+    """One GeoSpecNet eval batch of 8 under the default algorithms: exact
+    launches (GEO_EVAL), per-sample |ΔCD-L1×10³| kernels vs reference_ops()
+    <= CD_GATE, and a repeat with the kernels bit-equal."""
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train.evaluate import make_pcn_eval_fn
+
+    eval_fn = make_pcn_eval_fn(model, make_renderer(cfg))
+    partial = torch.as_tensor(batch.data["partial_cloud"], device="cuda")
+    gt = torch.as_tensor(batch.data["gtcloud"], device="cuda")
+    kernels.reset_launches()
+    m_k = eval_fn(partial, gt).cpu()
+    launches = dict(kernels.launches)
+    print(f"geospec eval main path launches (one batch of {B_MAIN}): {launches}")
+    if launches != GEO_EVAL:
+        fail(f"geospec eval launches {launches}, expected {GEO_EVAL}")
+    again = eval_fn(partial, gt).cpu()
+    with kernels.reference_ops():
+        m_r = eval_fn(partial, gt).cpu()
+    if not (torch.isfinite(m_k).all() and torch.isfinite(m_r).all()):
+        fail("non-finite geospec CD / DCD / F1")
+    worst = (m_k[0] - m_r[0]).abs().max().item()
+    print(f"geospec eval per-sample |ΔCD-L1×10³| kernels vs plain (default algorithms): max "
+          f"{worst:.3e} (gate {CD_GATE}); repeat bit-equal {torch.equal(again, m_k)}; mean "
+          f"CD-L1×10³ {m_k[0].mean().item():.4f}")
+    if not worst <= CD_GATE:
+        fail(f"geospec CD-L1×10³ differs by {worst} between kernels and plain")
+    if not torch.equal(again, m_k):
+        fail("a repeat of the geospec evaluation gave other bits")
+    return launches, eval_fn
+
+
+def geospec_entry_phase(torch, kernels) -> Dict[str, Dict[str, int]]:
+    """main_geospec on a synthetic PCN tree (12 train models: one GAN step an
+    epoch): --epochs 1 (validation by eval_pcn, checkpoints of both networks),
+    then --test of the best checkpoint's generator."""
+    from svdformer_pointsea_tpu_torch.cli import main_geospec
+    from svdformer_pointsea_tpu_torch.data.synthetic import write_pcn_tree
+
+    launches = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        write_pcn_tree(root, np.random.RandomState(SEED + 4), TREE_MODELS_GEO)
+        os.chdir(root)
+        try:
+            out = os.path.join(root, "out")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            state, best = main_geospec(["--epochs", "1", "--out", out])
+            torch.cuda.synchronize()
+            launches["main_geospec train"] = dict(kernels.launches)
+            print(f"main_geospec --epochs 1: {state.step} GAN step(s), best val CD-L1×10³ "
+                  f"{best:.4f}, {time.perf_counter() - t0:.1f} s; launches "
+                  f"{launches['main_geospec train']}")
+            if state.step != TREE_MODELS_GEO["train"] // B_TRAIN or not math.isfinite(best):
+                fail(f"main_geospec took {state.step} steps, best {best}")
+            for name in TRAIN_KERNELS + ("flash_attn",):
+                if launches["main_geospec train"][name] == 0:
+                    fail(f"kernel {name} was not launched by main_geospec")
+            ckpt = os.path.join(out, "checkpoints", "ckpt-best.pt")
+            payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+            if not {"model", "optimizer", "d_model", "d_optimizer"} <= set(payload):
+                fail(f"the GAN checkpoint holds {sorted(payload)}")
+            del state, payload
+            kernels.reset_launches()
+            mean_cd = main_geospec(["--test", "--weights", ckpt])
+            torch.cuda.synchronize()
+            launches["main_geospec --test"] = dict(kernels.launches)
+            print(f"main_geospec --test: mean CD-L1×10³ {mean_cd:.6f}; launches "
+                  f"{kernels.launches}")
+            if not math.isfinite(mean_cd) or kernels.launches["flash_attn"] == 0:
+                fail("main_geospec --test")
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def geospec_times(torch, kernels, cfg, batch, eval_fn, eval_batch) -> Dict[str, List[float]]:
+    """GAN ms/step at B 12 in f32 and bf16 mode (3 steps after 1 warm-up,
+    kernels and plain in turns) with peak memory, a profile of the f32 GAN
+    step, and eval completions/s at B 8 (5 calls after 1 warm-up, twice)."""
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import build_model
+    from svdformer_pointsea_tpu_torch.train.gan import create_gan_state, make_gan_train_step
+
+    box = [create_gan_state(cfg, build_model(cfg, seed=SEED), seed=SEED)]
+    step = make_gan_train_step(cfg.train.gan_weight, make_renderer(cfg).get_img)
+
+    def one():
+        box[0], _ = step(box[0], *batch, 1e-6, 1e-6)
+
+    out = {}
+    for precision in ("f32", "bf16"):
+        ms, peak = {"kernels": [], "plain": []}, {}
+        with mixed_precision(precision == "bf16"):
+            for mode in ("plain", "kernels", "kernels", "plain"):
+                ctx = kernels.reference_ops() if mode == "plain" else contextlib.nullcontext()
+                with ctx:
+                    ms[mode].append(cuda_ms(one, iters=3, warmup=1))
+                    torch.cuda.reset_peak_memory_stats()
+                    one()
+                    torch.cuda.synchronize()
+                    peak[mode] = torch.cuda.max_memory_allocated() / 2**30
+            print(f"geospec {precision} GAN ms/step at B={B_TRAIN} (render + G forward + D on gt "
+                  "and P2 + D's Adam + get_loss_pm + D(P2) + backward + G's Adam): kernels "
+                  + ", ".join(f"{x:.2f}" for x in ms["kernels"]) + "; plain "
+                  + ", ".join(f"{x:.2f}" for x in ms["plain"]) + f"; peak memory kernels "
+                  f"{peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB")
+            if precision == "f32":
+                kernel_profile(torch, one, "geospec f32 GAN")
+        out[precision] = ms["kernels"]
+    del box, step
+    torch.cuda.empty_cache()
+    partial = torch.as_tensor(eval_batch.data["partial_cloud"], device="cuda")
+    gt = torch.as_tensor(eval_batch.data["gtcloud"], device="cuda")
+    rates = [B_MAIN * 1000.0 / cuda_ms(lambda: eval_fn(partial, gt), iters=5, warmup=1)
+             for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    eval_fn(partial, gt)
+    torch.cuda.synchronize()
+    print(f"geospec f32 eval completions/s at B={B_MAIN} (render + forward + CD/DCD/F1): kernels "
+          + ", ".join(f"{r:.2f}" for r in rates)
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2060,7 +2278,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from svdformer_pointsea_tpu_torch import kernels, ops
-    from svdformer_pointsea_tpu_torch.configs import pcn_config, shapenet55_config
+    from svdformer_pointsea_tpu_torch.configs import (geospec_config, pcn_config,
+                                                      shapenet55_config)
     from svdformer_pointsea_tpu_torch.nn import flash, mixed_precision
     from svdformer_pointsea_tpu_torch.render import make_renderer
     from svdformer_pointsea_tpu_torch.train import build_model, init_state, make_train_step
@@ -2183,6 +2402,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     points55 = times_55(torch, ops, kernels, cfg55, batch55, eval_gt, g)
     print(f"ShapeNet-55 part: {time.perf_counter() - t55:.1f} s")
+    del batch55, eval_gt
+    torch.cuda.empty_cache()
+
+    # GeoSpecNet and its GAN trainer on PCN data: the f32 and bf16 GAN steps,
+    # an eval batch, main_geospec, the timings.
+    tgeo = time.perf_counter()
+    cfg_geo = geospec_config()
+    weights = torch.zeros(B_TRAIN, device="cuda")
+    weights[:train_batch.valid] = 1.0
+    gan_batch = tuple(torch.as_tensor(train_batch.data[k], device="cuda")
+                      for k in ("partial_cloud", "gtcloud")) + (weights,)
+    paths["geospec_gan_step"], gstate = geospec_gan_phase(torch, kernels, cfg_geo, gan_batch, "f32")
+    print(f"GeoSpecNet (PCN, spectral point encoder, SDG decoders): "
+          f"{sum(p.numel() for p in gstate.model.parameters()) / 1e6:.2f} M parameters; "
+          f"PointDiscriminator {sum(p.numel() for p in gstate.d_model.parameters())}")
+    del gstate
+    torch.cuda.empty_cache()
+    paths["geospec_bf16_gan_step"], _ = geospec_gan_phase(torch, kernels, cfg_geo, gan_batch, "bf16")
+    torch.cuda.empty_cache()
+    geo_model = build_model(cfg_geo, seed=SEED).eval()
+    paths["geospec_eval"], geo_eval_fn = geospec_eval_phase(torch, kernels, cfg_geo, geo_model,
+                                                            batches[0])
+    paths.update(geospec_entry_phase(torch, kernels))
+    torch.cuda.empty_cache()
+    geospec_times(torch, kernels, cfg_geo, gan_batch, geo_eval_fn, batches[0])
+    del geo_model, geo_eval_fn
+    print(f"GeoSpecNet part: {time.perf_counter() - tgeo:.1f} s")
 
     report = {"kernels": []}
     for name in kernels.KERNEL_NAMES:

@@ -1,15 +1,18 @@
-"""Command-line entry points of the PCN and ShapeNet-55 tracks (semantics
-of svdformer_pointsea_tpu/cli.py ``main_pcn`` / ``main_55``): training by
-default, evaluation of ``--weights`` with ``--test`` or ``--inference``.
+"""Command-line entry points of the PCN, ShapeNet-55 and GeoSpecNet tracks
+(semantics of svdformer_pointsea_tpu/cli.py ``main_pcn`` / ``main_55`` /
+``main_geospec``): training by default, evaluation of ``--weights`` with
+``--test`` or ``--inference``.
 
     python -m svdformer_pointsea_tpu_torch.cli pcn [--test|--inference] [--weights CKPT]
         [--out DIR] [--epochs N] [--precision f32|bf16] [--progress]
     python -m svdformer_pointsea_tpu_torch.cli 55 [the same flags]
         [--mode easy|median|hard] [--dataset 55|34|unseen21]
+    python -m svdformer_pointsea_tpu_torch.cli geospec [the same flags as pcn] [--run_id N]
 
-They run on the CUDA card unless ``main_pcn`` / ``main_55`` is called with
-``device="cpu"``. The JAX package's ``--sp`` (> 1), ``--dp shard_map`` and
-``--complete`` are parsed and refused with the ROADMAP item that ports them.
+They run on the CUDA card unless ``main_pcn`` / ``main_55`` / ``main_geospec``
+is called with ``device="cpu"``. The JAX package's ``--sp`` (> 1), ``--dp
+shard_map`` and ``--complete`` are parsed and refused with the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Sequence
 
 from svdformer_pointsea_tpu_torch.configs import (
     Config,
+    geospec_config,
     pcn_config,
     shapenet34_config,
     shapenet55_config,
@@ -30,7 +34,8 @@ from svdformer_pointsea_tpu_torch.configs import (
 
 
 def _parser(track: str = "pcn") -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=f"SVDFormer on {track}, PyTorch / CUDA port")
+    model = "GeoSpecNet on pcn" if track == "geospec" else f"SVDFormer on {track}"
+    p = argparse.ArgumentParser(description=f"{model}, PyTorch / CUDA port")
     p.add_argument("--test", action="store_true", help="evaluate --weights on the test split")
     p.add_argument("--inference", action="store_true", help="the same as --test")
     p.add_argument("--weights", default=None, help="checkpoint to resume from or to evaluate")
@@ -52,6 +57,9 @@ def _parser(track: str = "pcn") -> argparse.ArgumentParser:
         p.add_argument("--dataset", default="55", choices=["55", "34", "unseen21"],
                        help="index preset: ShapeNet-55, ShapeNet-34, or ShapeNet-Unseen21 "
                             "(a 34-trained model on the 21 held-out categories)")
+    if track == "geospec":
+        p.add_argument("--run_id", type=int, default=0,
+                       help="run tag: a nonzero N writes to <out_path>_N")
     return p
 
 
@@ -89,6 +97,8 @@ def _dispatch(cfg: Config, args, device: Optional[str], **test_kw):
     print("Use config:")
     pprint(cfg)
     if not args.test and not args.inference:
+        if cfg.network.model == "geospecnet":
+            return train.train_net_gan(cfg, device=device)
         return train.train_net(cfg, device=device)
     if cfg.weights is None:
         raise SystemExit("Please specify the path to a checkpoint (--weights)!")
@@ -123,20 +133,31 @@ def main_55(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
     return _dispatch(_apply_overrides(cfg, args), args, device, mode=args.mode)
 
 
-_TRACKS = {"pcn": main_pcn, "55": main_55}
+def main_geospec(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
+    """Train GeoSpecNet with its discriminator on PCN (``train_net_gan``), or
+    with ``--test`` / ``--inference`` evaluate the generator of ``--weights``;
+    ``--run_id N`` (nonzero) appends ``_N`` to the output path. Returns
+    ``train_net_gan``'s ``(state, best_metric)`` or ``test_net``'s mean CD."""
+    args = _setup("geospec", argv)
+    cfg = geospec_config()
+    if args.run_id:
+        cfg = cfg.replace(out_path=f"{cfg.out_path}_{args.run_id}")
+    return _dispatch(_apply_overrides(cfg, args), args, device)
+
+
+_TRACKS = {"pcn": main_pcn, "55": main_55, "geospec": main_geospec}
 
 
 def main(argv: Optional[Sequence[str]] = None):
     """``python -m svdformer_pointsea_tpu_torch.cli <track> [flags]``; the
-    port has the ``pcn`` and ``55`` tracks."""
+    port has the ``pcn``, ``55`` and ``geospec`` tracks."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in _TRACKS:
         track = argv[0] if argv else ""
-        item = {"geospec": "item 11", "pointsea": "item 12", "kitti": "item 13"}.get(
-            track, "items 11-13")
-        raise SystemExit(f"usage: python -m svdformer_pointsea_tpu_torch.cli pcn|55 [flags]; "
-                         f"the port has the PCN and ShapeNet-55 tracks ({track or 'no track'}: "
-                         f"GeoSpecNet, PointSea and KITTI are ROADMAP queue A {item})")
+        item = {"pointsea": "item 12", "kitti": "item 13"}.get(track, "items 12-13")
+        raise SystemExit(f"usage: python -m svdformer_pointsea_tpu_torch.cli pcn|55|geospec "
+                         f"[flags]; the port has the PCN, ShapeNet-55 and GeoSpecNet tracks "
+                         f"({track or 'no track'}: PointSea and KITTI are ROADMAP queue A {item})")
     return _TRACKS[argv[0]](argv[1:])
 
 

@@ -5,10 +5,11 @@ from svdformer_pointsea_tpu_torch.configs.base import (
     DataConfig,
     NetworkConfig,
     TrainConfig,
+    geospec_config,
     pcn_config,
     shapenet34_config,
     shapenet55_config,
 )
 
-__all__ = ["Config", "DataConfig", "NetworkConfig", "TrainConfig", "pcn_config",
+__all__ = ["Config", "DataConfig", "NetworkConfig", "TrainConfig", "geospec_config", "pcn_config",
            "shapenet34_config", "shapenet55_config"]

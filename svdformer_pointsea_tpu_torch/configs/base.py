@@ -1,6 +1,6 @@
-"""The configuration fields the PCN and ShapeNet-55 tracks read: the
-evaluation paths, the train steps and the ``main_pcn`` / ``main_55``
-orchestration (values of svdformer_pointsea_tpu/configs/base.py)."""
+"""The configuration fields the PCN, ShapeNet-55 and GeoSpecNet tracks read:
+the evaluation paths, the train steps and the ``main_pcn`` / ``main_55`` /
+``main_geospec`` orchestration (values of svdformer_pointsea_tpu/configs/base.py)."""
 
 from __future__ import annotations
 
@@ -10,8 +10,9 @@ from typing import Optional, Sequence, Tuple, Union
 
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
-    """SVDFormer hyperparameters (config_pcn.py / config_55.py). PCSA is
-    always on: every configuration this port has uses it."""
+    """Generator hyperparameters (config_pcn.py / config_55.py /
+    config_geospec.py). SVDFormer always runs PCSA in its SA modules,
+    GeoSpecNet never."""
 
     step1: int = 4
     step2: int = 8
@@ -22,6 +23,8 @@ class NetworkConfig:
     # self-attention block as each SDG decoder).
     decoder: str = "sdg"
     resolution: int = 224  # self-view depth-image resolution
+    # "svdformer" | "geospecnet"; PointSea is ROADMAP queue A item 12.
+    model: str = "svdformer"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +64,7 @@ class TrainConfig:
     adv_lambda_g: float = 0.05
     adv_d_lr: float = 1e-4
     adv_d_steps: int = 1
+    gan_weight: float = 0.05  # GeoSpecNet's GAN term in the generator's loss
     # "f32" (reference-faithful) or "bf16": bf16 image trunk and flash
     # attention inputs, parameters and optimizer f32 (nn/precision.py).
     precision: str = "f32"
@@ -112,3 +116,12 @@ def shapenet34_config(unseen: bool = False, mode: str = "easy", adv: bool = Fals
     index = "datasets/ShapeNet-Unseen21" if unseen else "datasets/ShapeNet34"
     return cfg.replace(data=dataclasses.replace(cfg.data, category_file=index),
                        out_path="out/svdformer_34")
+
+
+def geospec_config() -> Config:
+    """GeoSpecNet with its discriminator on PCN data (config_geospec.py): the
+    PCN sizes, schedule and Adam for both networks, ``get_loss_pm`` with the
+    sqrt pyramid, GAN weight 0.05."""
+    return Config(network=NetworkConfig(model="geospecnet"),
+                  train=TrainConfig(sqrt_loss=True, partial_matching=True),
+                  out_path="out/geospecnet_pcn")

@@ -1,9 +1,19 @@
-"""Neural building blocks, the SVDFormer model and the adversarial branch's
-discriminator (channels-last)."""
+"""Neural building blocks, the SVDFormer and GeoSpecNet models and the
+discriminators (channels-last)."""
 
-from svdformer_pointsea_tpu_torch.nn.discriminator import SimplePointDiscriminator
+from svdformer_pointsea_tpu_torch.nn.discriminator import (
+    PointDiscriminator,
+    SimplePointDiscriminator,
+)
 
 from svdformer_pointsea_tpu_torch.nn.flash import FlashAttention, flash_attention_train
+from svdformer_pointsea_tpu_torch.nn.geospecnet import (
+    GeoSpecNet,
+    MSGSpecConv,
+    SpectralAdapter,
+    SpectralFeatureExtractor,
+    SVFNetGS,
+)
 from svdformer_pointsea_tpu_torch.nn.layers import (
     PCSA,
     BatchNorm,
@@ -53,6 +63,12 @@ __all__ = [
     "BasicBlock",
     "ImageTrunk",
     "SVDFormer",
+    "GeoSpecNet",
+    "MSGSpecConv",
+    "SpectralAdapter",
+    "SpectralFeatureExtractor",
+    "SVFNetGS",
+    "PointDiscriminator",
     "SimplePointDiscriminator",
     "has_zero_gradient",
     "init_parameters",

@@ -346,18 +346,18 @@ class SinusoidalPositionalEmbedding(nn.Module):
 class PointNetSAModuleKNN(nn.Module):
     """Set abstraction with FPS + kNN grouping: xyz (B, N, 3), points (B, N, C)
     -> new_xyz (B, npoint, 3), new_points (B, npoint, mlp[-1]) [, idx].
-    Groups carry their relative coordinates ahead of the features. A
-    kNN-grouped module runs PCSA on its groups before the max, as every
-    SVDFormer configuration does; the group-all module has none."""
+    Groups carry their relative coordinates ahead of the features. With
+    ``use_pcsa`` (SVDFormer's) a kNN-grouped module runs PCSA on its groups
+    before the max. The group-all module never does."""
 
     def __init__(self, npoint: Optional[int], nsample: Optional[int], in_channel: int,
                  mlp: Sequence[int], if_bn: bool = True, group_all: bool = False,
-                 if_idx: bool = False):
+                 if_idx: bool = False, use_pcsa: bool = False):
         super().__init__()
         self.npoint, self.nsample = npoint, nsample
         self.group_all, self.if_idx = group_all, if_idx
         self.mlp = SharedMLP(in_channel + 3, mlp, if_bn=if_bn, last_act=False)
-        self.pcsa = None if group_all else PCSA(nsample)
+        self.pcsa = PCSA(nsample) if use_pcsa and not group_all else None
 
     def forward(self, xyz, points):
         if self.group_all:

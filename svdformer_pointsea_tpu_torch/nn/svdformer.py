@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 import re
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,8 +42,10 @@ class FeatureExtractor(nn.Module):
 
     def __init__(self, out_dim: int = 256):
         super().__init__()
-        self.sa1 = PointNetSAModuleKNN(512, 16, 3, (64, 128), if_bn=False, if_idx=True)
-        self.sa2 = PointNetSAModuleKNN(128, 16, 128, (128, 256), if_bn=False, if_idx=True)
+        self.sa1 = PointNetSAModuleKNN(512, 16, 3, (64, 128), if_bn=False, if_idx=True,
+                                       use_pcsa=True)
+        self.sa2 = PointNetSAModuleKNN(128, 16, 128, (128, 256), if_bn=False, if_idx=True,
+                                       use_pcsa=True)
         self.sa3 = PointNetSAModuleKNN(None, None, 256, (512, out_dim), if_bn=False,
                                        group_all=True)
 
@@ -54,13 +57,16 @@ class FeatureExtractor(nn.Module):
 
 class SVFNet(nn.Module):
     """Self-view fusion encoder and coarse seed generator:
-    points (B, N, 3), depth (B, 3, H, W) -> f_g (B, 1, 512), coarse (B, 256, 3)."""
+    points (B, N, 3), depth (B, 3, H, W) -> f_g (B, 1, 512), coarse (B, 256, 3).
+    ``point_fe`` is the point encoder, (B, N, 3) -> (B, 1, 256) (default
+    :class:`FeatureExtractor`; GeoSpecNet's is spectral)."""
 
-    def __init__(self, view_distance: float, channel: int = 64):
+    def __init__(self, view_distance: float, channel: int = 64,
+                 point_fe: Optional[nn.Module] = None):
         super().__init__()
         c = self.channel = channel
         self.img_trunk = ImageTrunk(feat_size=16)
-        self.point_fe = FeatureExtractor()
+        self.point_fe = FeatureExtractor() if point_fe is None else point_fe
         d = view_distance
         self.register_buffer(
             "view_point", torch.tensor([[0.0, 0.0, -d], [-d, 0.0, 0.0], [0.0, d, 0.0]]),
@@ -177,13 +183,15 @@ class LocalEncoder(nn.Module):
 class SVDFormer(nn.Module):
     """forward(partial (B, N, 3), depth (B, 3, H, W)) -> (coarse (B, 256, 3),
     fine1 (B, merge * step1, 3), fine2 (B, merge * step1 * step2, 3)).
-    ``decoder`` is "sdg" (PCN) or "attn" (ShapeNet-55)."""
+    ``decoder`` is "sdg" (PCN) or "attn" (ShapeNet-55); ``encoder`` replaces
+    the :class:`SVFNet` encoder (GeoSpecNet's)."""
 
     def __init__(self, step1: int = 4, step2: int = 8, merge_points: int = 512,
-                 local_points: int = 512, view_distance: float = 0.7, decoder: str = "sdg"):
+                 local_points: int = 512, view_distance: float = 0.7, decoder: str = "sdg",
+                 encoder: Optional[nn.Module] = None):
         super().__init__()
         self.merge_points = merge_points
-        self.encoder = SVFNet(view_distance)
+        self.encoder = SVFNet(view_distance) if encoder is None else encoder
         self.localencoder = LocalEncoder(local_points)
         self.refine1 = SDG(step1, hidden_dim=768, decoder=decoder)
         self.refine2 = SDG(step2, hidden_dim=512, decoder=decoder)
@@ -206,16 +214,19 @@ class SVDFormer(nn.Module):
 
 
 _ZERO_GRADIENT = re.compile(
-    r".*attn\.k_proj\.bias|localencoder\.(gcn\d\.conv[01]|gcn1\.conv2)\.bias")
+    r".*attn\.k_proj\.bias|localencoder\.(gcn\d\.conv[01]|gcn1\.conv2)\.bias"
+    r"|.*\.geo_fc2\.bias|stem\d\.bias")
 
 
 def has_zero_gradient(name: str) -> bool:
-    """True for the SVDFormer parameters whose exact gradient is 0, so that
-    their computed gradient is rounding noise: every attention key-projection
-    bias (softmax removes a per-row constant) and each bias that reaches a
-    BatchNorm through linear maps only (EdgeConv's conv0 / conv1, and gcn1's
-    conv2, whose output enters gcn2's conv0; BatchNorm removes a per-channel
-    constant). Adam scales that noise up to steps of up to lr."""
+    """True for the parameters of SVDFormer, GeoSpecNet and PointDiscriminator
+    whose exact gradient is 0, so that their computed gradient is rounding
+    noise: every attention key-projection bias and each SpectralAdapter's
+    ``geo_fc2`` bias (a softmax removes a per-row constant), and each bias
+    that reaches a BatchNorm through linear maps only (EdgeConv's conv0 /
+    conv1, gcn1's conv2, whose output enters gcn2's conv0, and the
+    discriminator's stem layers, in train mode; BatchNorm removes a
+    per-channel constant). Adam scales that noise up to steps of up to lr."""
     return _ZERO_GRADIENT.fullmatch(name) is not None
 
 
@@ -224,8 +235,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every weight from ``generator`` (on the CPU, so one seed gives one
     model on any device): Linear / Conv weights and biases uniform in
     ±1/sqrt(fan_in), norm scales 1 and shifts 0, BatchNorm running stats
-    mean 0 / var 1."""
+    mean 0 / var 1, a SpectralAdapter's ``freq_gate`` 0.02 N(0, 1)."""
     for m in model.modules():
+        if isinstance(getattr(m, "freq_gate", None), nn.Parameter):
+            m.freq_gate.copy_(0.02 * torch.randn(m.freq_gate.shape, generator=generator))
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             for p in (m.weight, m.bias):

@@ -5,7 +5,8 @@ Semantics of svdformer_pointsea_tpu/ops/distances.py:
   ascending top-k (self included);
 - ``nn_squared_distance`` / ``chamfer_distance``: per-query min squared
   distance and int32 argmin (lowest index on ties), with the CUDA chamfer's
-  backward: ``±2·g·(p − q[argmin])`` scattered into both clouds.
+  backward: ``±2·g·(p − q[argmin])`` scattered into both clouds (in a fixed
+  order on CUDA, ``ops/scatter.py``).
 
 The one-way NN search launches kernel K1 (``csrc/nn_distance.cu``) on a CUDA
 tensor, with the launch plan of ``nn_launch_plan``, and runs
@@ -20,6 +21,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from svdformer_pointsea_tpu_torch import kernels
+from svdformer_pointsea_tpu_torch.ops.scatter import scatter_add_rows
 
 # Cap on the (B, chunk, M) f32 distance tiles the plain NN search holds at
 # once (several temporaries of that size are live), so 16384 x 16384 at
@@ -164,11 +166,11 @@ def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter_rows(n: int, idx: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
-    """Scatter-add (B, K, 3) ``updates`` into zeros (B, n, 3) at (B, K) ``idx``."""
+    """Scatter-add (B, K, 3) ``updates`` into zeros (B, n, 3) at (B, K) ``idx``,
+    in a fixed order on CUDA (``ops/scatter.py``)."""
     B, K, C = updates.shape
     flat = (idx.long() + torch.arange(B, device=idx.device)[:, None] * n).reshape(-1)
-    out = torch.zeros(B * n, C, dtype=updates.dtype, device=updates.device)
-    return out.index_add_(0, flat, updates.reshape(B * K, C)).reshape(B, n, C)
+    return scatter_add_rows(B * n, flat, updates.reshape(B * K, C)).reshape(B, n, C)
 
 
 class _NNSquaredDistance(torch.autograd.Function):

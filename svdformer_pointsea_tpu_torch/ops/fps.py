@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from svdformer_pointsea_tpu_torch import kernels
+from svdformer_pointsea_tpu_torch.ops.scatter import gather_rows
 
 _MAG_SKIP = 1e-3
 _INIT_DIST = 1e10
@@ -141,9 +142,9 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) gathered at (B, S) indices -> (B, S, C)."""
-    C = points.shape[-1]
-    return points.gather(1, idx.long()[:, :, None].expand(-1, -1, C))
+    """(B, N, C) gathered at (B, S) indices -> (B, S, C); the backward adds
+    repeated indices in a fixed order on CUDA (``ops/scatter.py``)."""
+    return gather_rows(points, idx)
 
 
 def fps_subsample(pcd: torch.Tensor, n_points: int = 2048) -> torch.Tensor:

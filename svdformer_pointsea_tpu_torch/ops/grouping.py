@@ -8,14 +8,14 @@ import torch
 
 from svdformer_pointsea_tpu_torch.ops.distances import query_knn
 from svdformer_pointsea_tpu_torch.ops.fps import furthest_point_sample, gather_points
+from svdformer_pointsea_tpu_torch.ops.scatter import gather_rows
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) gathered at (B, ...) indices -> (B, ..., C)."""
-    B, N, C = points.shape
-    flat = idx.reshape(B, -1).long()
-    out = points.gather(1, flat[:, :, None].expand(-1, -1, C))
-    return out.reshape(*idx.shape, C)
+    """(B, N, C) gathered at (B, ...) indices -> (B, ..., C); the backward
+    adds repeated indices in a fixed order on CUDA (``ops/scatter.py``)."""
+    B, _, C = points.shape
+    return gather_rows(points, idx.reshape(B, -1)).reshape(*idx.shape, C)
 
 
 def grouping_operation(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -56,7 +56,10 @@ def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor], use_
     return new_xyz, new_points, idx, grouped_xyz
 
 
-def group_local(xyz: torch.Tensor, k: int = 20) -> torch.Tensor:
+def group_local(xyz: torch.Tensor, k: int = 20, return_idx: bool = False):
     """Self-kNN grouping (EdgeConv): (B, N, C) -> neighbours (B, N, k, C),
-    self included."""
-    return grouping_operation(xyz, query_knn(k, xyz, xyz))
+    absolute and self included, and with ``return_idx`` their (B, N, k)
+    indices too."""
+    idx = query_knn(k, xyz, xyz)
+    grouped = grouping_operation(xyz, idx)
+    return (grouped, idx) if return_idx else grouped

@@ -5,14 +5,17 @@ perspective-project three fixed views, snap with ``ceil(x + offset)``, wrap
 with a floored modulo after masking, and scatter depth-weighted values into
 per-view pixel buffers; a pixel with zero weight divides by 1.
 
-``index_add_`` on CUDA adds with atomics in no fixed order, so two runs of
-the same input can differ at the 1e-6 level in pixels that several points hit.
+The splat adds with ``ops/scatter.py::scatter_add_rows``: on CUDA in a fixed
+order (a stable sort of the pixel indices, no atomics), so two runs of one
+input give the same bits.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from svdformer_pointsea_tpu_torch.ops.scatter import scatter_add_rows
 
 
 def euler2mat(angles: np.ndarray) -> np.ndarray:
@@ -57,9 +60,9 @@ def _distribute_and_average(depth: torch.Tensor, _x: torch.Tensor, _y: torch.Ten
     size = image_height * image_width
     coords = (ex * image_width + ey).long().reshape(B, -1)
     flat = (coords + torch.arange(B, device=depth.device)[:, None] * size).reshape(-1)
-    weight_sum = torch.zeros(B * size, device=depth.device).index_add_(0, flat, weight.reshape(-1))
-    value_sum = torch.zeros(B * size, device=depth.device).index_add_(
-        0, flat, weighted_value.reshape(-1))
+    sums = scatter_add_rows(B * size, flat,
+                            torch.stack([weight.reshape(-1), weighted_value.reshape(-1)], 1))
+    weight_sum, value_sum = sums[:, 0], sums[:, 1]
     weight_sum = torch.where(weight_sum == 0.0, torch.ones_like(weight_sum), weight_sum)
     return (value_sum / weight_sum).reshape(B, image_height, image_width)
 

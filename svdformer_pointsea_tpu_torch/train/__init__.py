@@ -1,5 +1,5 @@
-"""Evaluation, the train steps, the PCN and ShapeNet-55 orchestration, the adversarial
-55 step, checkpoints and weight conversion."""
+"""Evaluation, the train steps, the PCN, ShapeNet-55 and GeoSpecNet
+orchestration, the adversarial steps, checkpoints and weight conversion."""
 
 from svdformer_pointsea_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -13,6 +13,7 @@ from svdformer_pointsea_tpu_torch.train.loop import (
     make_lr_fn,
     test_net,
     train_net,
+    train_net_gan,
 )
 from svdformer_pointsea_tpu_torch.train.state import (
     TrainState,
@@ -35,4 +36,5 @@ __all__ = [
     "save_checkpoint",
     "test_net",
     "train_net",
+    "train_net_gan",
 ]

@@ -9,7 +9,8 @@ transforms layouts:
 - Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
 - Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
 - LayerNorm / BatchNorm ``scale`` -> ``weight``; ``bias`` stays;
-- BatchNorm ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
+- BatchNorm ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
+- a raw parameter (``SpectralAdapter.freq_gate``) keeps its name and layout.
 
 Every leaf keeps all its values. In particular the seed layer
 ``encoder.ps`` keeps its full (64 * 128) bias: a JAX-trained tree need not
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_RAW = {"freq_gate"}  # parameters that are not a layer's kernel, scale or bias
 
 
 def _leaf(collection: str, key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -38,8 +40,8 @@ def _leaf(collection: str, key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
         raise ValueError(f"kernel of rank {arr.ndim}")
     if key == "scale":
         return "weight", arr
-    if key == "bias":
-        return "bias", arr
+    if key in ("bias", *_RAW):
+        return key, arr
     raise KeyError(f"unhandled parameter leaf {key!r}")
 
 

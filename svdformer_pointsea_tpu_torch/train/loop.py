@@ -1,6 +1,7 @@
-"""Orchestration of the PCN and ShapeNet-55 tracks: model and train-state
-construction, ``train_net`` and ``test_net`` (semantics of
-svdformer_pointsea_tpu/train/loop.py).
+"""Orchestration of the PCN, ShapeNet-55 and GeoSpecNet tracks: model and
+train-state construction, ``train_net``, GeoSpecNet's ``train_net_gan`` and
+``test_net`` (semantics of svdformer_pointsea_tpu/train/loop.py and
+``train_net_gan`` of svdformer_pointsea_tpu/train/gan.py).
 
 The model is built on the CUDA card unless the caller names another device;
 without a card and without ``device``, :func:`build_model` (and so
@@ -20,12 +21,17 @@ import numpy as np
 import torch
 
 from svdformer_pointsea_tpu_torch.data import Loader, make_dataset, random_crop_params
-from svdformer_pointsea_tpu_torch.nn import SVDFormer, init_parameters
+from svdformer_pointsea_tpu_torch.nn import GeoSpecNet, SVDFormer, init_parameters
 from svdformer_pointsea_tpu_torch.nn.precision import mixed_precision
 from svdformer_pointsea_tpu_torch.render import make_renderer
 from svdformer_pointsea_tpu_torch.train.checkpoint import CheckpointManager, restore_checkpoint
 from svdformer_pointsea_tpu_torch.train.evaluate import eval_55, eval_pcn
-from svdformer_pointsea_tpu_torch.train.gan import create_adv55_state, make_adv55_train_step
+from svdformer_pointsea_tpu_torch.train.gan import (
+    create_adv55_state,
+    create_gan_state,
+    make_adv55_train_step,
+    make_gan_train_step,
+)
 from svdformer_pointsea_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
@@ -45,12 +51,16 @@ def resolve_device(device: Optional[str] = None) -> str:
     return "cuda"
 
 
+_MODELS = {"svdformer": SVDFormer, "geospecnet": GeoSpecNet}
+
+
 def build_model(cfg, device: Optional[str] = None, seed: int = 0) -> SVDFormer:
-    """SVDFormer from ``cfg.network`` with weights drawn by ``init_parameters``
-    from a ``torch.Generator`` seeded with ``seed``, on ``device`` (default:
-    the CUDA card; pass ``device="cpu"`` to build on the CPU)."""
+    """The generator ``cfg.network.model`` names (SVDFormer or GeoSpecNet)
+    from ``cfg.network``, with weights drawn by ``init_parameters`` from a
+    ``torch.Generator`` seeded with ``seed``, on ``device`` (default: the
+    CUDA card; pass ``device="cpu"`` to build on the CPU)."""
     device = resolve_device(device)
-    model = SVDFormer.from_config(cfg.network)
+    model = _MODELS[cfg.network.model].from_config(cfg.network)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 
@@ -84,9 +94,12 @@ def check_supported(cfg) -> None:
     if cfg.data.name not in ("ShapeNet", "ShapeNet55"):
         raise NotImplementedError(f"the {cfg.data.name} track is not ported (ROADMAP queue A "
                                   "item 13 for KITTI)")
+    if cfg.network.model not in _MODELS:
+        raise NotImplementedError(f"the {cfg.network.model} model is not ported (ROADMAP queue "
+                                  "A item 12 for PointSea)")
     if t.adv_enabled and cfg.data.name != "ShapeNet55":
         raise NotImplementedError("the adversarial branch belongs to the ShapeNet-55 track; "
-                                  "GeoSpecNet's GAN is ROADMAP queue A item 11")
+                                  "GeoSpecNet's GAN is train_net_gan")
     if t.sp != 1:
         raise NotImplementedError(f"sp={t.sp}: sequence parallelism is multi-GPU work "
                                   "(ROADMAP queue A item 15)")
@@ -116,11 +129,30 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
     ``max_epochs`` / ``max_steps`` bound the run for smoke tests. Returns
     ``(state, best_metric)``.
     """
+    return _train(cfg, max_epochs, max_steps, device, gan=False)
+
+
+def train_net_gan(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = None,
+                  device: Optional[str] = None):
+    """GeoSpecNet's GAN run on PCN data: ``train_net``'s loop (loaders,
+    schedule, ``eval_pcn`` validation of the generator each epoch, best /
+    periodic checkpoints, resume, epoch log) with ``make_gan_train_step`` as
+    the step, both optimizers at the schedule's LR. Checkpoints hold both
+    networks and both optimizers; ``Train/g_loss`` and ``Train/d_loss`` are
+    logged. Returns ``(GANTrainState, best_metric)``."""
+    return _train(cfg, max_epochs, max_steps, device, gan=True)
+
+
+def _train(cfg, max_epochs: Optional[int], max_steps: Optional[int], device: Optional[str],
+           gan: bool):
     check_supported(cfg)
+    is_55 = cfg.data.name == "ShapeNet55"
+    if gan and is_55:
+        raise ValueError("train_net_gan trains on PCN data; the ShapeNet-55 track's adversarial "
+                         "branch is cfg.train.adv_enabled")
     device = resolve_device(device)
     set_seed(cfg.seed)
     tcfg = cfg.train
-    is_55 = cfg.data.name == "ShapeNet55"
     with mixed_precision(tcfg.precision == "bf16"):
         # The Loader pads a short batch by repeating its rows, as the
         # reference duplicates an odd batch on the 55 track.
@@ -129,11 +161,21 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
         val_loader = Loader(make_dataset(cfg, "test" if is_55 else "val", seed=cfg.seed),
                             tcfg.batch_size, shuffle=False, num_workers=cfg.data.num_workers)
         model = build_model(cfg, device=device, seed=cfg.seed)
-        state = init_state(cfg, model)
         logging.info("Parameters: %d", sum(p.numel() for p in model.parameters()))
         render_fn = make_renderer(cfg).get_img
         dev = next(model.parameters()).device
-        if tcfg.adv_enabled:
+        scalars = ("loss",)
+        if gan:
+            state = create_gan_state(cfg, model, seed=cfg.seed)
+            logging.info("Discriminator parameters: %d",
+                         sum(p.numel() for p in state.d_model.parameters()))
+            gan_step = make_gan_train_step(tcfg.gan_weight, render_fn)
+            scalars = ("g_loss", "d_loss")
+
+            def step(state, partial, gt, weights, lr):
+                return gan_step(state, partial, gt, weights, lr, lr)
+        elif tcfg.adv_enabled:
+            state = init_state(cfg, model)
             adv = create_adv55_state(cfg, dev, seed=cfg.seed)
             adv_step = make_adv55_train_step(
                 model, state.optimizer, sqrt_loss=tcfg.sqrt_loss, lambda_g=tcfg.adv_lambda_g,
@@ -143,6 +185,7 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
                 state, _, metrics = adv_step(state, adv, *batch_and_lr, tcfg.adv_d_lr)
                 return state, metrics
         else:
+            state = init_state(cfg, model)
             step = make_train_step(model, state.optimizer, tcfg.sqrt_loss, render_fn,
                                    partial_matching=tcfg.partial_matching,
                                    crop_n_out=cfg.data.n_points if is_55 else None)
@@ -168,6 +211,7 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
             epoch_t0 = time.time()
             timer.reset()
             losses = AverageMeter(["cdc", "cd1", "cd2"])
+            totals = AverageMeter(list(scalars))
             data_time, batch_time = AverageMeter(), AverageMeter()
             pending = []  # (step, lr, metrics on the device), read after the epoch
 
@@ -176,7 +220,9 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
                 for step_i, lr_i, metrics in entries:
                     vals = [float(metrics[k]) * 1e3 for k in ("cdc", "cd1", "cd2")]
                     losses.update(vals)
-                    logger.add_scalar("Train/loss", float(metrics["loss"]), step_i)
+                    totals.update([float(metrics[k]) for k in scalars])
+                    for key in scalars:
+                        logger.add_scalar(f"Train/{key}", float(metrics[key]), step_i)
                     logger.add_scalar("Train/lr", lr_i, step_i)
                 return vals
 
@@ -217,9 +263,10 @@ def train_net(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int] = 
                 sys.stderr.write("\n")
             wall = time.time() - epoch_t0
             logging.info("Epoch %d/%d t=%.1fs data=%.3fs/it host=%.3fs/it step=%.3fs/it "
-                         "losses(x1e3)=%s", epoch, n_epochs, wall, data_time.avg(),
+                         "losses(x1e3)=%s %s", epoch, n_epochs, wall, data_time.avg(),
                          batch_time.avg(), wall / max(n_batches, 1),
-                         [f"{v:.3f}" for v in losses.avg()])
+                         [f"{v:.3f}" for v in losses.avg()],
+                         " ".join(f"{k}={totals.avg(i):.4f}" for i, k in enumerate(scalars)))
 
             # The val loader is keyed by the true epoch too, so validation (and
             # with it the best checkpoint) is the same in a resumed run.

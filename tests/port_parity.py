@@ -68,12 +68,23 @@ def jax_mixed_precision(enabled: bool = True):
         jax_precision.set_mixed_precision(prev)
 
 
+# eval_shape results by (module, input shapes past the batch axis, kwargs):
+# a model's variables do not depend on its batch size, and tracing a whole
+# model's init takes seconds, which several test modules would repeat.
+_SHAPES: dict = {}
+
+
 def jax_variables(module, *args, seed: int = 0, **kwargs):
     """Random numpy variables for a flax ``module`` (shapes from
-    ``eval_shape``, so nothing is compiled): Dense / Conv kernels ~ N(0, 1/fan_in),
-    biases and BatchNorm shifts ~ 0.1 N(0, 1), scales ~ 1 + 0.1 N(0, 1), running
-    means ~ 0.1 N(0, 1), running variances ~ U(0.5, 1.5)."""
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args, **kwargs)
+    ``eval_shape``, so nothing is compiled; traced once per module and input
+    shape in a process): Dense / Conv kernels ~ N(0, 1/fan_in), biases and
+    BatchNorm shifts ~ 0.1 N(0, 1), scales ~ 1 + 0.1 N(0, 1), running means
+    ~ 0.1 N(0, 1), running variances ~ U(0.5, 1.5)."""
+    key = (type(module), repr(module), tuple(np.shape(a)[1:] for a in args),
+           tuple(sorted(kwargs.items())))
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args, **kwargs)
+    shapes = _SHAPES[key]
     rng = np.random.RandomState(seed)
 
     def fill(path, s):

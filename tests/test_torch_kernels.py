@@ -18,11 +18,15 @@ from svdformer_pointsea_tpu_torch.nn.layers import (
 )
 from svdformer_pointsea_tpu_torch.ops import (
     chamfer_distance,
+    group_local,
+    index_points,
+    query_knn,
     furthest_point_sample,
     furthest_point_sample_ref,
     nn_one_way,
     nn_one_way_plain,
     nn_squared_distance,
+    scatter,
 )
 from svdformer_pointsea_tpu_torch.ops.distances import (
     NnPlan,
@@ -37,6 +41,8 @@ from svdformer_pointsea_tpu_torch.ops.fps import (
     check_fps_plan,
     fps_launch_plan,
 )
+from svdformer_pointsea_tpu_torch.ops.scatter import gather_rows, scatter_add_rows
+from svdformer_pointsea_tpu_torch.render import PCViews
 
 # (N, npoint) of K2 and (N, M) of K1 on the main paths (training at B 12,
 # evaluation at B 8), and the H100's SM count.
@@ -827,8 +833,8 @@ def test_bf16_mode_attention_launches_the_bf16_kernels(cuda):
 def test_chamfer_and_nn_backward_with_k1_match_plain(cuda):
     """The chamfer and one-way NN gradients (±2 g (p − q[argmin]) scattered
     into both clouds) with K1 in the forward match those of the plain
-    forward: K1 picks the same argmins bit for bit, and only the order of
-    index_add_'s atomics differs (1e-6)."""
+    forward: K1 picks the same argmins bit for bit, and both sides scatter
+    in the same fixed order (held at 1e-6)."""
     a = torch.rand(2, 2048, 3, device="cuda", generator=cuda) - 0.5
     b = torch.rand(2, 512, 3, device="cuda", generator=cuda) - 0.5
     w1 = torch.rand(2, 2048, device="cuda", generator=cuda)
@@ -848,3 +854,123 @@ def test_chamfer_and_nn_backward_with_k1_match_plain(cuda):
         want = grads()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+def test_scatter_and_gather_keep_their_cpu_ops():
+    """On CPU tensors scatter_add_rows is index_add_ and gather_rows is
+    gather with gather's own backward, bit for bit (CUDA tensors sum each
+    run of equal indices in sorted order instead: below)."""
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 50, (400,), generator=g)
+    vals = torch.randn(400, 3, generator=g)
+    assert torch.equal(scatter_add_rows(50, idx, vals), torch.zeros(50, 3).index_add_(0, idx, vals))
+    pts = torch.randn(2, 50, 4, generator=g).requires_grad_(True)
+    gi = torch.randint(0, 50, (2, 300), generator=g)
+    gout = torch.randn(2, 300, 4, generator=g)
+    (got,) = torch.autograd.grad(gather_rows(pts, gi), pts, gout)
+    (want,) = torch.autograd.grad(pts.gather(1, gi[..., None].expand(-1, -1, 4)), pts, gout)
+    assert torch.equal(got, want)
+
+
+# (B, partial, gt, coarse, render resolution, EdgeConv points) and the kNN
+# groupings (N, centres, K, channels): PCN training shapes (SA1, SA2 and the
+# spectral adapters at K 16 / 32), and a small set for the CPU.
+SCATTER_SHAPES = {
+    "pcn": ((12, 2048, 16384, 512, 224, 512),
+            [(2048, 512, 16, 6), (512, 128, 16, 131), (128, 128, 16, 256), (128, 128, 32, 256)]),
+    "small": ((2, 256, 512, 64, 32, 64),
+              [(256, 64, 16, 6), (64, 32, 16, 9), (32, 32, 16, 8), (32, 32, 32, 8)]),
+}
+
+
+def _scatter_site(site, gen, device, shapes):
+    """A closure that runs one scatter site on fixed inputs: the depth
+    render's splat; the chamfer and NN backwards; or the grouping backwards
+    (index_points at each kNN grouping, group_local's EdgeConv grouping of
+    64 channels at K 8)."""
+    (b, n, n_gt, n_coarse, res, n_edge), cases = SCATTER_SHAPES[shapes]
+
+    def surfaces(m):
+        v = torch.randn(b, m, 3, device=device, generator=gen)
+        return 0.35 * v / v.norm(dim=-1, keepdim=True)
+
+    partial = surfaces(n)
+    if site == "render":
+        render = PCViews(trans=-0.7, resolution=res)
+        return lambda: (render.get_img(partial),)
+    if site == "chamfer":
+        gt = surfaces(n_gt)
+        pred = gt + 0.01 * torch.randn(gt.shape, device=device, generator=gen)
+        coarse = partial[:, :n_coarse] + 0.01 * torch.randn(b, n_coarse, 3, device=device,
+                                                             generator=gen)
+
+        def run():
+            p, q, c = (x.clone().requires_grad_(True) for x in (pred, gt, coarse))
+            d1, d2, _, _ = chamfer_distance(p, q)
+            loss = d1.sqrt().mean() + d2.sqrt().mean() + nn_squared_distance(c, partial).sum()
+            return torch.autograd.grad(loss, (p, q, c))
+        return run
+    feats = [torch.randn(b, m, ch, device=device, generator=gen) for m, _, _, ch in cases]
+    outs = [torch.randn(b, s, k, ch, device=device, generator=gen) for _, s, k, ch in cases]
+    idx = [query_knn(k, partial[:, :m], partial[:, :s]) for m, s, k, _ in cases]
+    x1 = torch.randn(b, n_edge, 64, device=device, generator=gen)
+    g2 = torch.randn(b, n_edge, 8, 64, device=device, generator=gen)
+
+    def run():
+        fs = [f.clone().requires_grad_(True) for f in feats]
+        loss = sum((index_points(f, i) * o).sum() for f, i, o in zip(fs, idx, outs))
+        x = x1.clone().requires_grad_(True)
+        loss = loss + (group_local(x, k=8) * g2).sum()
+        return torch.autograd.grad(loss, fs + [x])
+    return run
+
+
+def _assert_same_sums(got, want):
+    """Equal up to the order of the sums: 1e-5 of want's largest entry."""
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("site", ["render", "chamfer", "grouping"])
+def test_sorted_path_matches_the_plain_ops_on_cpu(site, monkeypatch):
+    """The sorted path (the private index_put_ and _GatherRows' backward with
+    its batch offsets), run here on CPU tensors, agrees with index_add_ and
+    gather's own backward at each scatter site."""
+    run = _scatter_site(site, torch.Generator().manual_seed(5), "cpu", "small")
+    want = run()
+    monkeypatch.setattr(scatter, "_fixed_order", lambda x: True)
+    _assert_same_sums(run(), want)
+
+
+@pytest.mark.cuda
+def test_private_index_put_matches_index_add(cuda):
+    """scatter_add_rows' private ATen call equals index_add_ on the card
+    (integer-valued terms, so that every order of the sums gives the same
+    bits): a torch whose _index_put_impl_ differs fails here."""
+    idx = torch.randint(0, 300, (5000,), device="cuda", generator=cuda)
+    vals = torch.randint(-64, 64, (5000, 4), device="cuda", generator=cuda).float()
+    want = torch.zeros(300, 4, device="cuda").index_add_(0, idx, vals)
+    assert torch.equal(scatter_add_rows(300, idx, vals), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["render", "chamfer", "grouping"])
+def test_cuda_scatters_are_reproducible(cuda, site, monkeypatch):
+    """Two runs at PCN training shapes (B 12) give the same bits under the
+    default algorithms: the depth render's splat (2048 points, 224²); the
+    chamfer backward at 16384² and the NN backward 512 -> 2048 (K1 in their
+    forwards); the grouping backwards of SA1 (kNN 16 of 2048 at 512
+    centres), SA2 (16 of 512 at 128, 131 channels), EdgeConv's gcn2 (8 of
+    512, 64 channels) and the spectral adapters (16 and 32 of 128, 256
+    channels). Each output also agrees, to 1e-5 of its largest entry, with
+    the same call through the atomic ops (index_add_ and gather's own
+    backward), which share no code with the sorted path."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    run = _scatter_site(site, cuda, "cuda", "pcn")
+    first = run()
+    for _ in range(2):
+        again = run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), site
+    monkeypatch.setattr(scatter, "_fixed_order", lambda x: False)
+    _assert_same_sums(first, run())

@@ -84,10 +84,11 @@ def test_pcsa_and_positional_embedding(rng):
 
 @pytest.mark.parametrize("if_bn", [False, True])
 def test_sa_module_knn(rng, if_bn):
-    # The port's kNN-grouped module always runs PCSA, as SVDFormer's do.
+    # With PCSA on its groups, as SVDFormer's kNN-grouped modules run.
     xyz, pts = _x(rng, 2, 128, 3), _x(rng, 2, 128, 5)
     _compare(jl.PointNetSAModuleKNN(32, 8, (16, 24), if_bn=if_bn, if_idx=True, use_pcsa=True),
-             tl.PointNetSAModuleKNN(32, 8, 5, (16, 24), if_bn=if_bn, if_idx=True), xyz, pts)
+             tl.PointNetSAModuleKNN(32, 8, 5, (16, 24), if_bn=if_bn, if_idx=True,
+                                    use_pcsa=True), xyz, pts)
     _compare(jl.PointNetSAModuleKNN(None, None, (16, 24), if_bn=if_bn, group_all=True),
              tl.PointNetSAModuleKNN(None, None, 5, (16, 24), if_bn=if_bn, group_all=True), xyz, pts)
 

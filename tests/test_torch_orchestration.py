@@ -173,15 +173,17 @@ def test_main_pcn_refuses_what_is_not_ported(argv, message):
 
 
 def test_cli_takes_the_pcn_track_only(monkeypatch):
-    """The tracks the port has dispatch (``pcn`` and ``55``, to their
-    main_*); the others refuse with the ROADMAP item that ports them."""
+    """The tracks the port has dispatch (``pcn``, ``55`` and ``geospec``, to
+    their main_*); the others refuse with the ROADMAP item that ports them."""
     calls = []
     monkeypatch.setattr(port_train, "test_net", lambda cfg, device=None, mode=None: calls.append(
-        (cfg.data.name, mode)))
+        (cfg.data.name, cfg.network.model, mode)))
     cli.main(["55", "--test", "--weights", "w.pt", "--mode", "hard"])
     cli.main(["pcn", "--test", "--weights", "w.pt"])
-    assert calls == [("ShapeNet55", "hard"), ("ShapeNet", None)]
-    for track, item in (("kitti", "item 13"), ("geospec", "item 11"), ("pointsea", "item 12")):
+    cli.main(["geospec", "--test", "--weights", "w.pt"])
+    assert calls == [("ShapeNet55", "svdformer", "hard"), ("ShapeNet", "svdformer", None),
+                     ("ShapeNet", "geospecnet", None)]
+    for track, item in (("kitti", "item 13"), ("pointsea", "item 12")):
         with pytest.raises(SystemExit, match=item):
             cli.main([track])
 
@@ -203,4 +205,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):  # the KITTI track
         port_train.train_net(cfg.replace(data=dataclasses.replace(cfg.data, name="KITTI")),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):  # PointSea
+        port_train.train_net(cfg.replace(network=dataclasses.replace(cfg.network,
+                                                                     model="pointsea")),
                              device="cpu")
