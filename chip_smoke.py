@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's PCN, ShapeNet-55 and GeoSpecNet paths on one CUDA
-card: evaluation, the train steps in f32 and in bf16 mode, the adversarial 55
-step, GeoSpecNet's GAN step, and the ``main_pcn`` / ``main_55`` /
-``main_geospec`` entry points.
+"""Drive the PyTorch port's PCN, ShapeNet-55, GeoSpecNet and PointSea paths on
+one CUDA card: evaluation, the train steps in f32 and in bf16 mode, the
+adversarial 55 step, GeoSpecNet's GAN step, and the ``main_pcn`` /
+``main_55`` / ``main_geospec`` / ``main_pointsea`` entry points.
 
     python3 chip_smoke.py
 
@@ -108,7 +108,22 @@ Phases (any failure exits non-zero):
    under the default algorithms (|ΔCD-L1×10³| <= 0.01, exact launches,
    repeat bit-equal); ``main_geospec --epochs 1`` on a synthetic PCN tree,
    then ``--test``; GAN ms/step at B 12 in f32 and bf16 (kernels and plain
-   in turns), peak memory, a profile of the f32 GAN step, eval completions/s.
+   in turns), peak memory, a profile of the f32 GAN step, eval completions/s;
+11. PointSea at full width (``pointsea_config()``: PCN data and sizes, the
+   realistic voxel renderer, ResNet-18 on 224² renders, two-stage view
+   fusion, the path-selection SDGs): ``PCViewsReal`` on the card against
+   itself on the CPU at B 12 (grid bit for bit, images within 1e-6);
+   ``eval_pcn`` over 2 batches of 8 with exact launches, then each batch
+   with the kernels and under ``reference_ops()`` in f32 and in bf16 mode
+   (per-sample |ΔCD-L1×10³| <= 0.01, default algorithms, repeats
+   bit-equal); one f32 and one bf16 train step with the kernels and under
+   ``reference_ops()`` from one state, deterministic algorithms: exact
+   launches, losses and first moments within the PCN bounds (PointSea's own
+   zero-gradient list), then 5 more steps (finite, running statistics
+   moved); ``main_pointsea --epochs 1`` on a synthetic PCN tree, then
+   ``--test`` in f32 and bf16; train ms/step in f32 and bf16 at B 12, eval
+   completions/s at B 8, the render and the trunk alone, peak memory, and a
+   profile of the f32 step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -260,6 +275,19 @@ GEO_EVAL = {name: 0 for name in F32_STEP_55}
 GEO_EVAL.update(nn_distance=6, fps=4, flash_attn=12, split_bf16x3=36)
 # The synthetic PCN tree of main_geospec: 1 batch of 12 an epoch.
 TREE_MODELS_GEO = {"train": 12, "val": 8, "test": 8}
+# PointSea (pointsea_config(): PCN data and sizes). Its flash sites are 6 at
+# (512, 512, 96) in SDG1 and 5 at (2048, 2048, 64) and 1 at (2048, 512, 64) in
+# SDG2; its view attentions (49 and 3 tokens) and seed attention (128) take
+# the naive math. A train step: K1 in both SDGs and the loss pyramid (8), K2
+# at SA1, SA2, the local encoder, the merge and the loss's ground truths (6);
+# an eval batch: K1 in both SDGs, calc_cd and calc_dcd (6), K2 4.
+PS_STEP = dict(GEO_STEP, nn_distance=8)
+PS_BF16_STEP = dict(BF16_STEP_LAUNCHES)
+PS_EVAL = dict(GEO_EVAL)
+PS_BF16_EVAL = dict(GEO_EVAL, flash_attn=0, split_bf16x3=0, flash_attn_bf16=12)
+# The synthetic PCN tree of main_pointsea: 1 batch of 12 an epoch.
+TREE_MODELS_PS = {"train": 12, "val": 8, "test": 8}
+IMG_TOL = 1e-6  # the realistic renders on the card vs the CPU (the Gaussian's sum order)
 SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
     "nn_distance": ("svdformer_pointsea_tpu_torch/csrc/nn_distance.cu",
                     "svdformer_pointsea_tpu/ops/nn_pallas.py:59"),
@@ -309,6 +337,7 @@ PROFILE_FAMILIES = [
     ("K5 bf16 flash dQ", r"bwd_dq_kernel"),
     ("K1 NN distance", r"nn_one_way_kernel"),
     ("K2 FPS", r"fps_kernel"),
+    ("max-pools (PointSea's render and trunk)", r"max_pool"),
     ("Adam (foreach)", r"multi_tensor|adam"),
     ("gather / scatter / index", r"index|scatter|gather"),
     ("reductions / norms / softmax", r"reduce|norm|softmax|topk|sort|radix"),
@@ -444,12 +473,13 @@ def synthetic_batches(rng: np.random.RandomState, n_batches: int = 3, bs: int = 
     return batches
 
 
-def first_moment_gap(torch, run, ref, check: bool, rtol: float = MU_RTOL, apart=None):
+def first_moment_gap(torch, run, ref, check: bool, rtol: float = MU_RTOL, apart=None,
+                     family: str = "svdformer"):
     """Worst relative L2 gap of Adam's first moment per parameter between two
-    runs of one step, the largest |mu| among zero-gradient parameters, and
-    the worst gap among the parameters named by ``apart`` = (prefix, rtol),
-    held to their own bound; with ``check``, fails beyond the bounds
-    (``rtol``, NOISE_MU)."""
+    runs of one step, the largest |mu| among zero-gradient parameters (by
+    the list of the model ``family``), and the worst gap among the
+    parameters named by ``apart`` = (prefix, rtol), held to their own bound;
+    with ``check``, fails beyond the bounds (``rtol``, NOISE_MU)."""
     from svdformer_pointsea_tpu_torch.nn import has_zero_gradient
 
     (model, state, _), (model_r, state_r, _) = run, ref
@@ -458,7 +488,7 @@ def first_moment_gap(torch, run, ref, check: bool, rtol: float = MU_RTOL, apart=
     for name, p in model.named_parameters():
         mu = state.optimizer.state[p]["exp_avg"]
         mu_r = state_r.optimizer.state[params_r[name]]["exp_avg"]
-        if has_zero_gradient(name):
+        if has_zero_gradient(name, family):
             noise = max(mu.abs().max().item(), mu_r.abs().max().item())
             worst_noise = max(worst_noise, (noise, name))
             if check and not noise <= NOISE_MU:
@@ -2266,6 +2296,254 @@ def geospec_times(torch, kernels, cfg, batch, eval_fn, eval_batch) -> Dict[str, 
     return out
 
 
+def pointsea_render_phase(torch, batch) -> None:
+    """PCViewsReal on the card against itself on the CPU at B 12: the grids
+    bit for bit (a scatter-max gives the same bits in any order), the images
+    within IMG_TOL (the Gaussian's sum order)."""
+    from svdformer_pointsea_tpu_torch.render import PCViewsReal
+
+    render = PCViewsReal(trans=-0.7)
+    pts = torch.as_tensor(batch.data["partial_cloud"])
+    grid, img = render.grid(pts.cuda()).cpu(), render.get_img(pts.cuda()).cpu()
+    grid_ref, img_ref = render.grid(pts), render.get_img(pts)
+    mismatches = (grid != grid_ref).sum().item()
+    err = (img - img_ref).abs().max().item()
+    print(f"pointsea render B{pts.shape[0]}x{pts.shape[1]} -> grids {tuple(grid.shape)}, images "
+          f"{tuple(img.shape)}: card vs CPU grid mismatches {mismatches} of {grid.numel()} "
+          f"(occupied {(grid > 0).sum().item()}), images max|Δ| {err:.3e} (bound {IMG_TOL})")
+    if mismatches or not err <= IMG_TOL or not torch.isfinite(img).all():
+        fail("PCViewsReal on the card differs from the CPU")
+
+
+def pointsea_eval_phase(torch, kernels, cfg, model, batches, precision: str):
+    """eval_pcn over ``batches`` in f32 or bf16 mode with exact launches (the
+    counted main path), then each batch with the kernels, again, and under
+    reference_ops(), default algorithms: per-sample |ΔCD-L1×10³| <= CD_GATE and
+    repeats bit-equal. Returns the launches and the eval function."""
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train.evaluate import eval_pcn, make_pcn_eval_fn
+
+    bf16 = precision == "bf16"
+    want = {k: len(batches) * v for k, v in (PS_BF16_EVAL if bf16 else PS_EVAL).items()}
+    eval_fn = make_pcn_eval_fn(model, make_renderer(cfg))
+    worst, repeats = 0.0, []
+    with mixed_precision(bf16):
+        kernels.reset_launches()
+        mean_cd = eval_pcn(cfg, model, batches)
+        launches = dict(kernels.launches)
+        print(f"pointsea {precision} eval main path launches ({len(batches)} batches of {B_MAIN}): "
+              f"{launches}; mean CD-L1×10³ {mean_cd:.6f}")
+        if launches != want:
+            fail(f"pointsea {precision} eval launches {launches}, expected {want}")
+        for batch in batches:
+            partial = torch.as_tensor(batch.data["partial_cloud"], device="cuda")
+            gt = torch.as_tensor(batch.data["gtcloud"], device="cuda")
+            m_k = eval_fn(partial, gt)[:, :batch.valid].cpu()
+            repeats.append(torch.equal(eval_fn(partial, gt)[:, :batch.valid].cpu(), m_k))
+            with kernels.reference_ops():
+                m_r = eval_fn(partial, gt)[:, :batch.valid].cpu()
+            if not (torch.isfinite(m_k).all() and torch.isfinite(m_r).all()):
+                fail("non-finite pointsea CD / DCD / F1")
+            worst = max(worst, (m_k[0] - m_r[0]).abs().max().item())
+    print(f"pointsea {precision} eval per-sample |ΔCD-L1×10³| kernels vs plain (default "
+          f"algorithms): max {worst:.3e} (gate {CD_GATE}); repeat of each batch bit-equal "
+          f"{repeats}")
+    if not worst <= CD_GATE:
+        fail(f"pointsea {precision} CD-L1×10³ differs by {worst} between kernels and plain")
+    if not all(repeats):
+        fail(f"a repeat of the pointsea {precision} evaluation gave other bits")
+    return launches, eval_fn
+
+
+def pointsea_train_phase(torch, kernels, cfg, batch, precision: str):
+    """One PointSea train step in f32 or bf16 mode with the kernels (the
+    counted main path) and one under reference_ops(), from one state (seed
+    SEED), both with PyTorch's deterministic algorithms: exact launches
+    (PS_STEP / PS_BF16_STEP), the loss and its parts within the precision's
+    bound, Adam's first moments within the PCN bounds (PointSea's
+    zero-gradient list; in bf16 the image trunk apart). Then 5 more kernel
+    steps: finite losses, every BatchNorm's running statistics moved.
+    Returns the launches and the first step's metrics."""
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.nn.layers import BatchNorm
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import (build_model, init_state, make_lr_fn,
+                                                    make_train_step)
+
+    bf16 = precision == "bf16"
+    lr_fn = make_lr_fn(cfg)
+    lr = lr_fn(1, 0)
+    render = make_renderer(cfg)
+    runs = {}
+    for mode in ("kernels", "plain"):
+        model = build_model(cfg, seed=SEED)
+        state = init_state(cfg, model)
+        runs[mode] = (model, state, make_train_step(model, state.optimizer, cfg.train.sqrt_loss,
+                                                    render.get_img))
+    label = f"pointsea {precision} train step"
+    with mixed_precision(bf16):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            model_k, state_k, step_k = runs["kernels"]
+            kernels.reset_launches()
+            state_k, m_k = step_k(state_k, *batch, lr)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            model_r, state_r, step_r = runs["plain"]
+            with kernels.reference_ops():
+                state_r, m_r = step_r(state_r, *batch, lr)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    want = PS_BF16_STEP if bf16 else PS_STEP
+    print(f"{label} main path launches: {launches}")
+    if launches != want:
+        fail(f"{label} launches {launches}, expected {want}")
+    if kernels.launches != launches:
+        fail("a kernel launched under reference_ops()")
+    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+    for key in ("loss", "cdc", "cd1", "cd2"):
+        a, b = m_k[key].item(), m_r[key].item()
+        rel = abs(a - b) / abs(b)
+        print(f"{label} 1 {key}: kernels {a:.8f}, plain {b:.8f}, rel |Δ| {rel:.3e} (bound "
+              f"{loss_rtol})")
+        if not (math.isfinite(a) and rel <= loss_rtol):
+            fail(f"{label} {key} differs: {a} vs {b}")
+    kw = dict(rtol=BF16_MU_RTOL, apart=(BF16_TRUNK, BF16_TRUNK_MU_RTOL)) if bf16 else {}
+    worst, noise, trunk = first_moment_gap(torch, runs["kernels"], (model_r, state_r, None),
+                                           check=True, family="pointsea", **kw)
+    print(f"{label} Adam first moment kernels vs plain: worst leaf {worst[1]} rel ‖Δ‖ "
+          f"{worst[0]:.3e}" + (f" (bf16 ResNet-18 {trunk[1]} {trunk[0]:.3e}, bound "
+                               f"{BF16_TRUNK_MU_RTOL})" if bf16 else "")
+          + f", bound {kw.get('rtol', MU_RTOL)}; zero-gradient leaves (PointSea's list) max |mu| "
+          f"{noise[0]:.3e} ({noise[1]}, bound {NOISE_MU})")
+    del runs, model_r, state_r, step_r
+    bns = [m for m in model_k.modules() if isinstance(m, BatchNorm)]
+    before = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    losses = []
+    with mixed_precision(bf16):
+        for _ in range(5):
+            lr = lr_fn(state_k.step + 1, 0)
+            state_k, m = step_k(state_k, *batch, lr)
+            losses.append(m["loss"].item())
+    still = sum(torch.equal(m.running_mean, a) or torch.equal(m.running_var, b)
+                for m, (a, b) in zip(bns, before))
+    print(f"{label}s 2-6: losses {losses}; running statistics moved in "
+          f"{len(bns) - still} of {len(bns)} BatchNorms")
+    if not all(math.isfinite(x) for x in losses) or still:
+        fail(f"{label}s 2-6: losses {losses}, {still} BatchNorms kept their statistics")
+    return launches, m_k
+
+
+def pointsea_entry_phase(torch, kernels) -> Dict[str, Dict[str, int]]:
+    """main_pointsea on a synthetic PCN tree (12 train models: one step an
+    epoch): --epochs 1 (validation by eval_pcn, checkpoints), then --test of
+    the best checkpoint in f32 and in bf16."""
+    from svdformer_pointsea_tpu_torch.cli import main_pointsea
+    from svdformer_pointsea_tpu_torch.data.synthetic import write_pcn_tree
+
+    launches = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        write_pcn_tree(root, np.random.RandomState(SEED + 5), TREE_MODELS_PS)
+        os.chdir(root)
+        try:
+            out = os.path.join(root, "out")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            state, best = main_pointsea(["--epochs", "1", "--out", out])
+            torch.cuda.synchronize()
+            launches["main_pointsea train"] = dict(kernels.launches)
+            print(f"main_pointsea --epochs 1: {state.step} step(s), best val CD-L1×10³ "
+                  f"{best:.4f}, {time.perf_counter() - t0:.1f} s; launches "
+                  f"{launches['main_pointsea train']}")
+            if state.step != TREE_MODELS_PS["train"] // B_TRAIN or not math.isfinite(best):
+                fail(f"main_pointsea took {state.step} steps, best {best}")
+            for name in TRAIN_KERNELS + ("flash_attn",):
+                if launches["main_pointsea train"][name] == 0:
+                    fail(f"kernel {name} was not launched by main_pointsea")
+            ckpt = os.path.join(out, "checkpoints", "ckpt-best.pt")
+            del state
+            for precision in ("f32", "bf16"):
+                kernels.reset_launches()
+                mean_cd = main_pointsea(["--test", "--weights", ckpt, "--precision", precision])
+                torch.cuda.synchronize()
+                launches[f"main_pointsea --test {precision}"] = dict(kernels.launches)
+                k3 = "flash_attn_bf16" if precision == "bf16" else "flash_attn"
+                print(f"main_pointsea --test --precision {precision}: mean CD-L1×10³ "
+                      f"{mean_cd:.6f}; launches {kernels.launches}")
+                if not math.isfinite(mean_cd) or kernels.launches[k3] == 0:
+                    fail(f"main_pointsea --test --precision {precision}")
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def pointsea_times(torch, kernels, cfg, batch, eval_fn, eval_batch) -> Dict[str, List[float]]:
+    """Train ms/step at B 12 in f32 and bf16 mode (3 steps after 1 warm-up,
+    kernels and plain in turns) with peak memory, a profile of the f32 step,
+    the render of B 12 and ResNet-18's train-mode forward on its 36 images
+    alone, and eval completions/s at B 8 in f32 and bf16 (5 calls after 1
+    warm-up, twice)."""
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import build_model, init_state, make_train_step
+
+    model = build_model(cfg, seed=SEED)
+    state = init_state(cfg, model)
+    render = make_renderer(cfg)
+    box = [state]
+    step = make_train_step(model, state.optimizer, cfg.train.sqrt_loss, render.get_img)
+
+    def one():
+        box[0], _ = step(box[0], *batch, 1e-6)
+
+    out = {}
+    for precision in ("f32", "bf16"):
+        ms, peak = {"kernels": [], "plain": []}, {}
+        with mixed_precision(precision == "bf16"):
+            for mode in ("plain", "kernels", "kernels", "plain"):
+                ctx = kernels.reference_ops() if mode == "plain" else contextlib.nullcontext()
+                with ctx:
+                    ms[mode].append(cuda_ms(one, iters=3, warmup=1))
+                    torch.cuda.reset_peak_memory_stats()
+                    one()
+                    torch.cuda.synchronize()
+                    peak[mode] = torch.cuda.max_memory_allocated() / 2**30
+            print(f"pointsea {precision} train ms/step at B={B_TRAIN} (render + forward + loss + "
+                  "backward + Adam): kernels " + ", ".join(f"{x:.2f}" for x in ms["kernels"])
+                  + "; plain " + ", ".join(f"{x:.2f}" for x in ms["plain"]) + f"; peak memory "
+                  f"kernels {peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB")
+            if precision == "f32":
+                kernel_profile(torch, one, "pointsea f32 train")
+            partial = batch[0]
+            depth = render.get_img(partial)
+            with torch.no_grad():
+                trunk_ms = cuda_ms(lambda: model.encoder.img_trunk(depth), iters=5, warmup=1)
+            print(f"pointsea {precision}: realistic render of B={B_TRAIN} "
+                  f"{cuda_ms(lambda: render.get_img(partial), iters=5, warmup=1):.3f} ms; "
+                  f"ResNet-18 train-mode forward on {depth.shape[0]} images of "
+                  f"{depth.shape[-1]}² {trunk_ms:.3f} ms")
+        out[precision] = ms["kernels"]
+    del box, step, model, state
+    torch.cuda.empty_cache()
+    partial = torch.as_tensor(eval_batch.data["partial_cloud"], device="cuda")
+    gt = torch.as_tensor(eval_batch.data["gtcloud"], device="cuda")
+    for precision in ("f32", "bf16"):
+        with mixed_precision(precision == "bf16"):
+            rates = [B_MAIN * 1000.0 / cuda_ms(lambda: eval_fn(partial, gt), iters=5, warmup=1)
+                     for _ in range(2)]
+            torch.cuda.reset_peak_memory_stats()
+            eval_fn(partial, gt)
+            torch.cuda.synchronize()
+        print(f"pointsea {precision} eval completions/s at B={B_MAIN} (render + forward + "
+              "CD/DCD/F1): kernels " + ", ".join(f"{r:.2f}" for r in rates)
+              + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        out[f"{precision} eval"] = rates
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2279,7 +2557,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from svdformer_pointsea_tpu_torch import kernels, ops
     from svdformer_pointsea_tpu_torch.configs import (geospec_config, pcn_config,
-                                                      shapenet55_config)
+                                                      pointsea_config, shapenet55_config)
     from svdformer_pointsea_tpu_torch.nn import flash, mixed_precision
     from svdformer_pointsea_tpu_torch.render import make_renderer
     from svdformer_pointsea_tpu_torch.train import build_model, init_state, make_train_step
@@ -2429,6 +2707,34 @@ def main() -> int:
     geospec_times(torch, kernels, cfg_geo, gan_batch, geo_eval_fn, batches[0])
     del geo_model, geo_eval_fn
     print(f"GeoSpecNet part: {time.perf_counter() - tgeo:.1f} s")
+    torch.cuda.empty_cache()
+
+    # PointSea on PCN data: the realistic render on the card vs the CPU, the
+    # eval path and the f32 and bf16 train steps, main_pointsea, the timings.
+    tps = time.perf_counter()
+    cfg_ps = pointsea_config()
+    pointsea_render_phase(torch, train_batch)
+    ps_model = build_model(cfg_ps, seed=SEED).eval()
+    print(f"PointSea (PCN, step {cfg_ps.network.step1}/{cfg_ps.network.step2}, merge "
+          f"{cfg_ps.network.merge_points}, local {cfg_ps.network.local_points}, ResNet-18 on "
+          f"224² renders): {sum(p.numel() for p in ps_model.parameters()) / 1e6:.2f} M "
+          f"parameters, of which ResNet-18 "
+          f"{sum(p.numel() for p in ps_model.encoder.img_trunk.parameters()) / 1e6:.2f} M")
+    ps_batches = batches[:2]
+    paths["pointsea_eval"], ps_eval_fn = pointsea_eval_phase(torch, kernels, cfg_ps, ps_model,
+                                                             ps_batches, "f32")
+    paths["pointsea_bf16_eval"], _ = pointsea_eval_phase(torch, kernels, cfg_ps, ps_model,
+                                                         ps_batches, "bf16")
+    torch.cuda.empty_cache()
+    for precision in ("f32", "bf16"):
+        key = "pointsea_train_step" if precision == "f32" else "pointsea_bf16_train_step"
+        paths[key], _ = pointsea_train_phase(torch, kernels, cfg_ps, gan_batch, precision)
+        torch.cuda.empty_cache()
+    paths.update(pointsea_entry_phase(torch, kernels))
+    torch.cuda.empty_cache()
+    pointsea_times(torch, kernels, cfg_ps, gan_batch, ps_eval_fn, batches[0])
+    del ps_model, ps_eval_fn
+    print(f"PointSea part: {time.perf_counter() - tps:.1f} s")
 
     report = {"kernels": []}
     for name in kernels.KERNEL_NAMES:

@@ -1,18 +1,19 @@
-"""Command-line entry points of the PCN, ShapeNet-55 and GeoSpecNet tracks
-(semantics of svdformer_pointsea_tpu/cli.py ``main_pcn`` / ``main_55`` /
-``main_geospec``): training by default, evaluation of ``--weights`` with
-``--test`` or ``--inference``.
+"""Command-line entry points of the PCN, ShapeNet-55, GeoSpecNet and PointSea
+tracks (semantics of svdformer_pointsea_tpu/cli.py ``main_pcn`` / ``main_55``
+/ ``main_geospec`` / ``main_pointsea``): training by default, evaluation of
+``--weights`` with ``--test`` or ``--inference``.
 
     python -m svdformer_pointsea_tpu_torch.cli pcn [--test|--inference] [--weights CKPT]
         [--out DIR] [--epochs N] [--precision f32|bf16] [--progress]
     python -m svdformer_pointsea_tpu_torch.cli 55 [the same flags]
         [--mode easy|median|hard] [--dataset 55|34|unseen21]
     python -m svdformer_pointsea_tpu_torch.cli geospec [the same flags as pcn] [--run_id N]
+    python -m svdformer_pointsea_tpu_torch.cli pointsea [the same flags as pcn]
 
 They run on the CUDA card unless ``main_pcn`` / ``main_55`` / ``main_geospec``
-is called with ``device="cpu"``. The JAX package's ``--sp`` (> 1), ``--dp
-shard_map`` and ``--complete`` are parsed and refused with the ROADMAP item
-that ports them.
+/ ``main_pointsea`` is called with ``device="cpu"``. The JAX package's
+``--sp`` (> 1), ``--dp shard_map`` and ``--complete`` are parsed and refused
+with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -28,13 +29,15 @@ from svdformer_pointsea_tpu_torch.configs import (
     Config,
     geospec_config,
     pcn_config,
+    pointsea_config,
     shapenet34_config,
     shapenet55_config,
 )
 
 
 def _parser(track: str = "pcn") -> argparse.ArgumentParser:
-    model = "GeoSpecNet on pcn" if track == "geospec" else f"SVDFormer on {track}"
+    model = {"geospec": "GeoSpecNet on pcn", "pointsea": "PointSea on pcn"}.get(
+        track, f"SVDFormer on {track}")
     p = argparse.ArgumentParser(description=f"{model}, PyTorch / CUDA port")
     p.add_argument("--test", action="store_true", help="evaluate --weights on the test split")
     p.add_argument("--inference", action="store_true", help="the same as --test")
@@ -145,19 +148,27 @@ def main_geospec(argv: Optional[Sequence[str]] = None, device: Optional[str] = N
     return _dispatch(_apply_overrides(cfg, args), args, device)
 
 
-_TRACKS = {"pcn": main_pcn, "55": main_55, "geospec": main_geospec}
+def main_pointsea(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
+    """Train, or with ``--test`` / ``--inference`` evaluate, PointSea on PCN
+    (``train_net`` / ``test_net`` with the realistic renderer). Returns
+    ``train_net``'s ``(state, best_metric)`` or ``test_net``'s mean CD."""
+    args = _setup("pointsea", argv)
+    return _dispatch(_apply_overrides(pointsea_config(), args), args, device)
+
+
+_TRACKS = {"pcn": main_pcn, "55": main_55, "geospec": main_geospec, "pointsea": main_pointsea}
 
 
 def main(argv: Optional[Sequence[str]] = None):
     """``python -m svdformer_pointsea_tpu_torch.cli <track> [flags]``; the
-    port has the ``pcn``, ``55`` and ``geospec`` tracks."""
+    port has the ``pcn``, ``55``, ``geospec`` and ``pointsea`` tracks."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in _TRACKS:
-        track = argv[0] if argv else ""
-        item = {"pointsea": "item 12", "kitti": "item 13"}.get(track, "items 12-13")
-        raise SystemExit(f"usage: python -m svdformer_pointsea_tpu_torch.cli pcn|55|geospec "
-                         f"[flags]; the port has the PCN, ShapeNet-55 and GeoSpecNet tracks "
-                         f"({track or 'no track'}: PointSea and KITTI are ROADMAP queue A {item})")
+        track = argv[0] if argv else "no track"
+        raise SystemExit(f"usage: python -m svdformer_pointsea_tpu_torch.cli "
+                         f"pcn|55|geospec|pointsea [flags]; the port has the PCN, ShapeNet-55, "
+                         f"GeoSpecNet and PointSea tracks ({track}: KITTI is ROADMAP queue A "
+                         f"item 13)")
     return _TRACKS[argv[0]](argv[1:])
 
 

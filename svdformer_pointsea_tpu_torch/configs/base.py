@@ -1,6 +1,7 @@
-"""The configuration fields the PCN, ShapeNet-55 and GeoSpecNet tracks read:
-the evaluation paths, the train steps and the ``main_pcn`` / ``main_55`` /
-``main_geospec`` orchestration (values of svdformer_pointsea_tpu/configs/base.py)."""
+"""The configuration fields the PCN, ShapeNet-55, GeoSpecNet and PointSea
+tracks read: the evaluation paths, the train steps and the ``main_pcn`` /
+``main_55`` / ``main_geospec`` / ``main_pointsea`` orchestration (values of
+svdformer_pointsea_tpu/configs/base.py)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Optional, Sequence, Tuple, Union
 class NetworkConfig:
     """Generator hyperparameters (config_pcn.py / config_55.py /
     config_geospec.py). SVDFormer always runs PCSA in its SA modules,
-    GeoSpecNet never."""
+    GeoSpecNet and PointSea never."""
 
     step1: int = 4
     step2: int = 8
@@ -22,9 +23,8 @@ class NetworkConfig:
     # "sdg" (PCN: SDG_Decoder stacks) or "attn" (ShapeNet-55: one
     # self-attention block as each SDG decoder).
     decoder: str = "sdg"
-    resolution: int = 224  # self-view depth-image resolution
-    # "svdformer" | "geospecnet"; PointSea is ROADMAP queue A item 12.
-    model: str = "svdformer"
+    resolution: int = 224  # self-view depth-image resolution (PointSea's renders are 224²)
+    model: str = "svdformer"  # "svdformer" | "geospecnet" | "pointsea"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,3 +125,10 @@ def geospec_config() -> Config:
     return Config(network=NetworkConfig(model="geospecnet"),
                   train=TrainConfig(sqrt_loss=True, partial_matching=True),
                   out_path="out/geospecnet_pcn")
+
+
+def pointsea_config() -> Config:
+    """PointSea on PCN data: the PCN sizes, schedule, Adam and sqrt pyramid
+    loss, with the realistic voxel renderer that ``render.make_renderer``
+    picks for the model."""
+    return Config(network=NetworkConfig(model="pointsea"), out_path="out/pointsea_pcn")

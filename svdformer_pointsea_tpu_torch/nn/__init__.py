@@ -1,5 +1,5 @@
-"""Neural building blocks, the SVDFormer and GeoSpecNet models and the
-discriminators (channels-last)."""
+"""Neural building blocks, the SVDFormer, GeoSpecNet and PointSea models and
+the discriminators (channels-last)."""
 
 from svdformer_pointsea_tpu_torch.nn.discriminator import (
     PointDiscriminator,
@@ -22,8 +22,10 @@ from svdformer_pointsea_tpu_torch.nn.layers import (
     MLPConv,
     MultiheadAttention,
     PointNetSAModuleKNN,
+    PointSeaSDGDecoder,
     SDGDecoder,
     SelfAttentionBlock,
+    SelfAttentionBlockNoProj,
     SharedMLP,
     SinusoidalPositionalEmbedding,
     bn_row_weights,
@@ -31,12 +33,18 @@ from svdformer_pointsea_tpu_torch.nn.layers import (
     naive_attention,
     scaled_attention,
 )
+from svdformer_pointsea_tpu_torch.nn.pointsea import (
+    PointSea,
+    PointSeaLocalEncoder,
+    PointSeaSDG,
+    PointSeaSVFNet,
+)
 from svdformer_pointsea_tpu_torch.nn.precision import (
     mixed_precision,
     mixed_precision_enabled,
     set_mixed_precision,
 )
-from svdformer_pointsea_tpu_torch.nn.resnet import BasicBlock, ImageTrunk
+from svdformer_pointsea_tpu_torch.nn.resnet import BasicBlock, ImageTrunk, ResNet18
 from svdformer_pointsea_tpu_torch.nn.svdformer import SVDFormer, has_zero_gradient, init_parameters
 
 __all__ = [
@@ -49,8 +57,10 @@ __all__ = [
     "MLPConv",
     "MultiheadAttention",
     "PointNetSAModuleKNN",
+    "PointSeaSDGDecoder",
     "SDGDecoder",
     "SelfAttentionBlock",
+    "SelfAttentionBlockNoProj",
     "SharedMLP",
     "SinusoidalPositionalEmbedding",
     "bn_row_weights",
@@ -62,12 +72,17 @@ __all__ = [
     "set_mixed_precision",
     "BasicBlock",
     "ImageTrunk",
+    "ResNet18",
     "SVDFormer",
     "GeoSpecNet",
     "MSGSpecConv",
     "SpectralAdapter",
     "SpectralFeatureExtractor",
     "SVFNetGS",
+    "PointSea",
+    "PointSeaLocalEncoder",
+    "PointSeaSDG",
+    "PointSeaSVFNet",
     "PointDiscriminator",
     "SimplePointDiscriminator",
     "has_zero_gradient",

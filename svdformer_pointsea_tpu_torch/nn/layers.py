@@ -274,6 +274,28 @@ class SDGDecoder(nn.Module):
         return self.sa2(self.sa1(x))
 
 
+class SelfAttentionBlockNoProj(SelfAttentionBlock):
+    """:class:`SelfAttentionBlock` without the input projection (PointSea's):
+    (B, N, d_out) -> (B, N, d_out)."""
+
+    def __init__(self, d_out: int, nhead: int = 4, dim_feedforward: int = 1024):
+        super().__init__(d_out, d_out, nhead, dim_feedforward)
+        self.input_proj = nn.Identity()
+
+
+class PointSeaSDGDecoder(nn.Module):
+    """PointSea's SDG decoder: two no-projection self-attention blocks at the
+    hidden width, 8 heads."""
+
+    def __init__(self, hidden_dim: int):
+        super().__init__()
+        self.sa1 = SelfAttentionBlockNoProj(hidden_dim, nhead=8)
+        self.sa2 = SelfAttentionBlockNoProj(hidden_dim, nhead=8)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.sa2(self.sa1(x))
+
+
 class EdgeConv(nn.Module):
     """DGCNN edge convolution: kNN in feature space (self included), edge
     features [central − neighbour ‖ central], two BN + LeakyReLU(0.2) layers

@@ -1,17 +1,23 @@
-"""SVDFormer's depth-image trunk (NCHW inside, cuDNN convolutions).
+"""The image trunks (NCHW inside, cuDNN convolutions).
 
-Mirrors svdformer_pointsea_tpu/nn/resnet.py::ImageTrunk without its
-space-to-depth packing, a TPU layout transform with the same numerics: a
-stride-1 3x3 stem (1 -> feat_size) + BN + ReLU, ResNet layers (2, 2, 2, 2) at
-widths feat_size x (1, 2, 4, 8) with stride 1 then 2, 2, 2, and a global
-average pool. Parameter names follow the JAX tree (``stem_conv``,
+- ``ImageTrunk``, SVDFormer's depth-image encoder: svdformer_pointsea_tpu/
+  nn/resnet.py::ImageTrunk without its space-to-depth packing, a TPU layout
+  transform with the same numerics: a stride-1 3x3 stem (1 -> feat_size) +
+  BN + ReLU, ResNet layers (2, 2, 2, 2) at widths feat_size x (1, 2, 4, 8)
+  with stride 1 then 2, 2, 2, and a global average pool.
+- ``ResNet18``, PointSea's standard ResNet-18 trunk: a 7x7 stride-2 stem +
+  BN + ReLU, a 3x3 stride-2 max-pool, layers at 64 / 128 / 256 / 512 with
+  stride 1, 2, 2, 2, returning the (B, 512, H/32, W/32) feature map.
+
+Parameter names follow the JAX tree (``stem_conv``, ``conv1``,
 ``layer2.block0.down_conv`` ...).
 
-Under ``nn.precision.set_mixed_precision(True)`` the trunk runs in bf16 as
-the JAX package's does (its ``_trunk_dtype``): the input is cast to bf16,
+Under ``nn.precision.set_mixed_precision(True)`` both trunks run in bf16 as
+the JAX package's do (its ``_trunk_dtype``): the input is cast to bf16,
 every convolution runs on the bf16 activations with its weight cast to
 bf16, every BatchNorm applies a bf16 affine (``nn/layers.py::BatchNorm``),
-and the final mean pools in f32. Parameters stay f32.
+and the output (ImageTrunk's mean pool, ResNet18's feature map) is f32.
+Parameters stay f32.
 """
 
 from __future__ import annotations
@@ -88,3 +94,24 @@ class ImageTrunk(nn.Module):
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         return x.float().mean(dim=(2, 3))
+
+
+class ResNet18(nn.Module):
+    """(B, 3, H, W) images -> (B, 512, H/32, W/32) f32 feature maps."""
+
+    def __init__(self, layers: Sequence[int] = (2, 2, 2, 2)):
+        super().__init__()
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm(64, dim=1)
+        self.layer1 = _Layer(64, 64, layers[0], 1)
+        self.layer2 = _Layer(64, 128, layers[1], 2)
+        self.layer3 = _Layer(128, 256, layers[2], 2)
+        self.layer4 = _Layer(256, 512, layers[3], 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if mixed_precision_enabled():
+            x = x.to(torch.bfloat16)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf, as flax's max_pool
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        return x.float()

@@ -38,14 +38,15 @@ def torch_channel_reshape(x_cl: torch.Tensor, new_c: int, new_n: int) -> torch.T
 
 
 class FeatureExtractor(nn.Module):
-    """Three SA-kNN stages: points (B, N, 3) -> global feature (B, 1, out_dim)."""
+    """Three SA-kNN stages: points (B, N, 3) -> global feature (B, 1, out_dim);
+    ``use_pcsa`` runs PCSA in the first two (SVDFormer's; PointSea's has none)."""
 
-    def __init__(self, out_dim: int = 256):
+    def __init__(self, out_dim: int = 256, use_pcsa: bool = True):
         super().__init__()
         self.sa1 = PointNetSAModuleKNN(512, 16, 3, (64, 128), if_bn=False, if_idx=True,
-                                       use_pcsa=True)
+                                       use_pcsa=use_pcsa)
         self.sa2 = PointNetSAModuleKNN(128, 16, 128, (128, 256), if_bn=False, if_idx=True,
-                                       use_pcsa=True)
+                                       use_pcsa=use_pcsa)
         self.sa3 = PointNetSAModuleKNN(None, None, 256, (512, out_dim), if_bn=False,
                                        group_all=True)
 
@@ -55,24 +56,13 @@ class FeatureExtractor(nn.Module):
         return self.sa3(l2_xyz, l2_points)[1]
 
 
-class SVFNet(nn.Module):
-    """Self-view fusion encoder and coarse seed generator:
-    points (B, N, 3), depth (B, 3, H, W) -> f_g (B, 1, 512), coarse (B, 256, 3).
-    ``point_fe`` is the point encoder, (B, N, 3) -> (B, 1, 256) (default
-    :class:`FeatureExtractor`; GeoSpecNet's is spectral)."""
+class SeedGenerator(nn.Module):
+    """The coarse seed generator of :class:`SVFNet` and PointSea's encoder:
+    the global feature f_g (B, 1, 512) -> coarse points (B, 256, 3). A
+    subclass registers the layers with :meth:`add_seed_layers` after its own."""
 
-    def __init__(self, view_distance: float, channel: int = 64,
-                 point_fe: Optional[nn.Module] = None):
-        super().__init__()
+    def add_seed_layers(self, channel: int) -> None:
         c = self.channel = channel
-        self.img_trunk = ImageTrunk(feat_size=16)
-        self.point_fe = FeatureExtractor() if point_fe is None else point_fe
-        d = view_distance
-        self.register_buffer(
-            "view_point", torch.tensor([[0.0, 0.0, -d], [-d, 0.0, 0.0], [0.0, d, 0.0]]),
-            persistent=False)
-        self.posmlp = MLPConv(3, (64, 256))
-        self.viewattn = SelfAttentionBlock(384, 256)
         # ConvTranspose1d(512 -> c, k=128) on a length-1 input: one Linear to
         # c * 128 outputs laid out channel-major, with a bias per output (the
         # JAX tree keeps all c * 128 bias values).
@@ -82,18 +72,8 @@ class SVFNet(nn.Module):
         self.conv_out1 = nn.Linear(c * 4 + 512, 64)
         self.conv_out = nn.Linear(64, 3)
 
-    def forward(self, points: torch.Tensor, depth: torch.Tensor):
-        B = points.shape[0]
-        V = depth.shape[1]
-        c = self.channel
-        f_v = self.img_trunk(depth.reshape(B * V, 1, depth.shape[2], depth.shape[3]))
-        f_v = f_v.reshape(B, V, -1)  # (B, 3, 128), batch-major view-minor
-        f_p = self.point_fe(points)  # (B, 1, 256)
-        view_feature = self.posmlp(self.view_point.expand(B, 3, 3))  # (B, 3, 256)
-        fused = torch.cat([f_v, f_p.expand(B, V, f_p.shape[-1])], dim=-1)  # (B, 3, 384)
-        f_v_ = self.viewattn(fused, pos=view_feature).amax(dim=1, keepdim=True)
-        f_g = torch.cat([f_p, f_v_], dim=-1)  # (B, 1, 512)
-
+    def seed_points(self, f_g: torch.Tensor) -> torch.Tensor:
+        B, c = f_g.shape[0], self.channel
         x = F.gelu(self.ps(f_g[:, 0]).reshape(B, c, 128).transpose(1, 2))  # (B, 128, c)
         x = torch.cat([x, f_g.expand(B, 128, 512)], dim=-1)
         x2 = self.sa(F.gelu(self.ps_refuse(x)))  # (B, 128, 8c)
@@ -101,8 +81,39 @@ class SVFNet(nn.Module):
         n_coarse = (128 * c * 8) // (c * 4)
         x2_d = torch_channel_reshape(x2, c * 4, n_coarse)
         h = torch.cat([x2_d, f_g.expand(B, n_coarse, 512)], dim=-1)
-        coarse = self.conv_out(F.gelu(self.conv_out1(h)))
-        return f_g, coarse
+        return self.conv_out(F.gelu(self.conv_out1(h)))
+
+
+class SVFNet(SeedGenerator):
+    """Self-view fusion encoder and coarse seed generator:
+    points (B, N, 3), depth (B, 3, H, W) -> f_g (B, 1, 512), coarse (B, 256, 3).
+    ``point_fe`` is the point encoder, (B, N, 3) -> (B, 1, 256) (default
+    :class:`FeatureExtractor`; GeoSpecNet's is spectral)."""
+
+    def __init__(self, view_distance: float, channel: int = 64,
+                 point_fe: Optional[nn.Module] = None):
+        super().__init__()
+        self.img_trunk = ImageTrunk(feat_size=16)
+        self.point_fe = FeatureExtractor() if point_fe is None else point_fe
+        d = view_distance
+        self.register_buffer(
+            "view_point", torch.tensor([[0.0, 0.0, -d], [-d, 0.0, 0.0], [0.0, d, 0.0]]),
+            persistent=False)
+        self.posmlp = MLPConv(3, (64, 256))
+        self.viewattn = SelfAttentionBlock(384, 256)
+        self.add_seed_layers(channel)
+
+    def forward(self, points: torch.Tensor, depth: torch.Tensor):
+        B = points.shape[0]
+        V = depth.shape[1]
+        f_v = self.img_trunk(depth.reshape(B * V, 1, depth.shape[2], depth.shape[3]))
+        f_v = f_v.reshape(B, V, -1)  # (B, 3, 128), batch-major view-minor
+        f_p = self.point_fe(points)  # (B, 1, 256)
+        view_feature = self.posmlp(self.view_point.expand(B, 3, 3))  # (B, 3, 256)
+        fused = torch.cat([f_v, f_p.expand(B, V, f_p.shape[-1])], dim=-1)  # (B, 3, 384)
+        f_v_ = self.viewattn(fused, pos=view_feature).amax(dim=1, keepdim=True)
+        f_g = torch.cat([f_p, f_v_], dim=-1)  # (B, 1, 512)
+        return f_g, self.seed_points(f_g)
 
 
 def _decoder(kind: str, hidden_dim: int, out_dim: int, ratio: int) -> nn.Module:
@@ -213,21 +224,30 @@ class SVDFormer(nn.Module):
         return coarse, fine1, fine2
 
 
-_ZERO_GRADIENT = re.compile(
-    r".*attn\.k_proj\.bias|localencoder\.(gcn\d\.conv[01]|gcn1\.conv2)\.bias"
-    r"|.*\.geo_fc2\.bias|stem\d\.bias")
+_ZERO_GRADIENT = {
+    # SVDFormer and GeoSpecNet (and PointDiscriminator's stems): gcn1's output
+    # enters only gcn2's conv0.
+    "svdformer": re.compile(
+        r".*attn\.k_proj\.bias|localencoder\.(gcn\d\.conv[01]|gcn1\.conv2)\.bias"
+        r"|.*\.geo_fc2\.bias|stem\d\.bias"),
+    # PointSea: gcn1's output also enters the local features (mlpp).
+    "pointsea": re.compile(r".*attn\.k_proj\.bias|localencoder\.gcn\d\.conv[01]\.bias"),
+}
+_ZERO_GRADIENT["geospecnet"] = _ZERO_GRADIENT["svdformer"]
 
 
-def has_zero_gradient(name: str) -> bool:
-    """True for the parameters of SVDFormer, GeoSpecNet and PointDiscriminator
-    whose exact gradient is 0, so that their computed gradient is rounding
-    noise: every attention key-projection bias and each SpectralAdapter's
-    ``geo_fc2`` bias (a softmax removes a per-row constant), and each bias
-    that reaches a BatchNorm through linear maps only (EdgeConv's conv0 /
-    conv1, gcn1's conv2, whose output enters gcn2's conv0, and the
-    discriminator's stem layers, in train mode; BatchNorm removes a
-    per-channel constant). Adam scales that noise up to steps of up to lr."""
-    return _ZERO_GRADIENT.fullmatch(name) is not None
+def has_zero_gradient(name: str, model: str = "svdformer") -> bool:
+    """True for the parameters of the ``model`` family (a ``cfg.network.model``:
+    SVDFormer, GeoSpecNet with PointDiscriminator, or PointSea) whose exact
+    gradient is 0, so that their computed gradient is rounding noise: every
+    attention key-projection bias and each SpectralAdapter's ``geo_fc2`` bias
+    (a softmax removes a per-row constant), and each bias that reaches a
+    BatchNorm through linear maps only (EdgeConv's conv0 / conv1; in
+    SVDFormer and GeoSpecNet also gcn1's conv2, whose output enters only
+    gcn2's conv0; the discriminator's stem layers; all in train mode:
+    BatchNorm removes a per-channel constant). Adam scales that noise up to
+    steps of up to lr."""
+    return _ZERO_GRADIENT[model].fullmatch(name) is not None
 
 
 @torch.no_grad()

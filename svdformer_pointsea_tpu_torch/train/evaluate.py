@@ -14,7 +14,7 @@ import torch
 from svdformer_pointsea_tpu_torch.data.crop import FIXED_CORNERS, crop_fixed
 from svdformer_pointsea_tpu_torch.losses import calc_cd, calc_dcd
 from svdformer_pointsea_tpu_torch.ops import fps_subsample
-from svdformer_pointsea_tpu_torch.render import PCViews, make_renderer
+from svdformer_pointsea_tpu_torch.render import make_renderer
 from svdformer_pointsea_tpu_torch.utils import AverageMeter
 
 METRIC_NAMES = ["cd", "dcd", "f1"]
@@ -37,7 +37,7 @@ def _per_sample_metrics(pred, gt, sqrt_cd: bool):
     return cd * 1e3, dcd, f1
 
 
-def make_pcn_eval_fn(model: torch.nn.Module, render: PCViews):
+def make_pcn_eval_fn(model: torch.nn.Module, render):
     """(partial (B, N, 3), gt (B, M, 3)) -> (3, B) metrics [cd×10³, dcd, f1],
     rendering and running ``model`` in eval mode under inference mode."""
     disable_tf32()
@@ -71,7 +71,7 @@ def eval_pcn(cfg, model: torch.nn.Module, loader, logger=None, epoch: int = 0) -
     return tables.report(logger, epoch)
 
 
-def make_55_eval_fn(model: torch.nn.Module, render: PCViews, num_crop: int,
+def make_55_eval_fn(model: torch.nn.Module, render, num_crop: int,
                     n_sample: int = 2048):
     """(gt (B, N, 3), corners (V, 3)) -> (V, 3, B) metrics [cd×10³ (CD-L2),
     dcd, f1]: for each corner in turn, the ``num_crop`` points nearest it

@@ -1,7 +1,9 @@
-"""Orchestration of the PCN, ShapeNet-55 and GeoSpecNet tracks: model and
-train-state construction, ``train_net``, GeoSpecNet's ``train_net_gan`` and
-``test_net`` (semantics of svdformer_pointsea_tpu/train/loop.py and
-``train_net_gan`` of svdformer_pointsea_tpu/train/gan.py).
+"""Orchestration of the PCN, ShapeNet-55, GeoSpecNet and PointSea tracks:
+model and train-state construction, ``train_net``, GeoSpecNet's
+``train_net_gan`` and ``test_net`` (semantics of
+svdformer_pointsea_tpu/train/loop.py and ``train_net_gan`` of
+svdformer_pointsea_tpu/train/gan.py). PointSea runs the PCN loop with its
+realistic renderer (``render.make_renderer``).
 
 The model is built on the CUDA card unless the caller names another device;
 without a card and without ``device``, :func:`build_model` (and so
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from svdformer_pointsea_tpu_torch.data import Loader, make_dataset, random_crop_params
-from svdformer_pointsea_tpu_torch.nn import GeoSpecNet, SVDFormer, init_parameters
+from svdformer_pointsea_tpu_torch.nn import GeoSpecNet, PointSea, SVDFormer, init_parameters
 from svdformer_pointsea_tpu_torch.nn.precision import mixed_precision
 from svdformer_pointsea_tpu_torch.render import make_renderer
 from svdformer_pointsea_tpu_torch.train.checkpoint import CheckpointManager, restore_checkpoint
@@ -51,11 +53,11 @@ def resolve_device(device: Optional[str] = None) -> str:
     return "cuda"
 
 
-_MODELS = {"svdformer": SVDFormer, "geospecnet": GeoSpecNet}
+_MODELS = {"svdformer": SVDFormer, "geospecnet": GeoSpecNet, "pointsea": PointSea}
 
 
-def build_model(cfg, device: Optional[str] = None, seed: int = 0) -> SVDFormer:
-    """The generator ``cfg.network.model`` names (SVDFormer or GeoSpecNet)
+def build_model(cfg, device: Optional[str] = None, seed: int = 0) -> torch.nn.Module:
+    """The generator ``cfg.network.model`` names (SVDFormer, GeoSpecNet or PointSea)
     from ``cfg.network``, with weights drawn by ``init_parameters`` from a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (default: the
     CUDA card; pass ``device="cpu"`` to build on the CPU)."""
@@ -95,8 +97,7 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(f"the {cfg.data.name} track is not ported (ROADMAP queue A "
                                   "item 13 for KITTI)")
     if cfg.network.model not in _MODELS:
-        raise NotImplementedError(f"the {cfg.network.model} model is not ported (ROADMAP queue "
-                                  "A item 12 for PointSea)")
+        raise ValueError(f"model must be one of {sorted(_MODELS)}, got {cfg.network.model!r}")
     if t.adv_enabled and cfg.data.name != "ShapeNet55":
         raise NotImplementedError("the adversarial branch belongs to the ShapeNet-55 track; "
                                   "GeoSpecNet's GAN is train_net_gan")

@@ -56,6 +56,51 @@ def jax_difference_form_nn(monkeypatch):
     monkeypatch.setattr(jax_distances, "_nn_one_way", nn_one_way)
 
 
+def _blocked_sum(a, axis=None, keepdims=False, block: int = 512):
+    """``jnp.sum`` in two levels: the reduced elements in blocks of ``block``,
+    each block summed, then the block sums, with an optimization barrier
+    between so that XLA keeps the two levels apart. The rounding error of a
+    sum of n grows with about n / block + block additions instead of n."""
+    a = jnp.asarray(a)
+    axes = tuple(range(a.ndim)) if axis is None else tuple(
+        int(d) % a.ndim for d in np.atleast_1d(axis))
+    keep = tuple(d for d in range(a.ndim) if d not in axes)
+    x = jnp.transpose(a, axes + keep).reshape((-1,) + tuple(a.shape[d] for d in keep))
+    pad = (-x.shape[0]) % block
+    if pad:
+        x = jnp.concatenate([x, jnp.zeros((pad,) + x.shape[1:], x.dtype)])
+    part = jax.lax.optimization_barrier(jnp.sum(x.reshape((-1, block) + x.shape[1:]), axis=1))
+    out = jnp.sum(part, axis=0)
+    return jnp.expand_dims(out, axes) if keepdims else out
+
+
+class _BlockedSums:
+    """``jax.numpy`` with :func:`_blocked_sum` as its ``sum``."""
+
+    sum = staticmethod(_blocked_sum)
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@pytest.fixture
+def jax_blocked_bn_sums(monkeypatch):
+    """The JAX package's train-mode BatchNorm moments summed in blocks for one
+    test (``jnp.sum`` in nn/layers.py, where the BatchNorms sum).
+
+    Off the TPU, XLA sums a reduction over the leading axes of a channels-last
+    tensor one row after another, so that its rounding error grows with the
+    number of rows, and adding one value many times rounds the same way each
+    time. A realistic render repeats its background value over most of its
+    224² pixels: the batch sums of ResNet-18's BatchNorms then lose digits,
+    and the E[x²] - mean² variance amplifies that, so the JAX
+    trunk's train-mode output strays from an f64 evaluation far more than
+    the port's (whose CPU and CUDA sums are cascaded or tree-shaped). A test
+    of the train step on such renders holds the port against blocked sums.
+    """
+    monkeypatch.setattr(jax_layers, "jnp", _BlockedSums())
+
+
 @contextlib.contextmanager
 def jax_mixed_precision(enabled: bool = True):
     """The JAX package's mixed-precision switch set to ``enabled`` for the

@@ -256,7 +256,8 @@ def test_port_imports_without_jax():
         "assert {'svdformer_pointsea_tpu_torch.data.crop', 'svdformer_pointsea_tpu_torch.train.gan', "
         "'svdformer_pointsea_tpu_torch.nn.discriminator', 'svdformer_pointsea_tpu_torch.cli', "
         "'svdformer_pointsea_tpu_torch.kernels', 'svdformer_pointsea_tpu_torch.train.loop', "
-        "'svdformer_pointsea_tpu_torch.nn.geospecnet', 'svdformer_pointsea_tpu_torch.ops.scatter'} "
+        "'svdformer_pointsea_tpu_torch.nn.geospecnet', 'svdformer_pointsea_tpu_torch.ops.scatter', "
+        "'svdformer_pointsea_tpu_torch.nn.pointsea', 'svdformer_pointsea_tpu_torch.render.realistic'} "
         "<= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'svdformer_pointsea_tpu')]\n"

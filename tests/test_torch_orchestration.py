@@ -173,19 +173,21 @@ def test_main_pcn_refuses_what_is_not_ported(argv, message):
 
 
 def test_cli_takes_the_pcn_track_only(monkeypatch):
-    """The tracks the port has dispatch (``pcn``, ``55`` and ``geospec``, to
-    their main_*); the others refuse with the ROADMAP item that ports them."""
+    """The tracks the port has dispatch (``pcn``, ``55``, ``geospec`` and
+    ``pointsea``, to their main_*); KITTI refuses with the ROADMAP item that
+    ports it."""
     calls = []
     monkeypatch.setattr(port_train, "test_net", lambda cfg, device=None, mode=None: calls.append(
         (cfg.data.name, cfg.network.model, mode)))
     cli.main(["55", "--test", "--weights", "w.pt", "--mode", "hard"])
     cli.main(["pcn", "--test", "--weights", "w.pt"])
     cli.main(["geospec", "--test", "--weights", "w.pt"])
+    cli.main(["pointsea", "--test", "--weights", "w.pt"])
     assert calls == [("ShapeNet55", "svdformer", "hard"), ("ShapeNet", "svdformer", None),
-                     ("ShapeNet", "geospecnet", None)]
-    for track, item in (("kitti", "item 13"), ("pointsea", "item 12")):
-        with pytest.raises(SystemExit, match=item):
-            cli.main([track])
+                     ("ShapeNet", "geospecnet", None), ("ShapeNet", "pointsea", None)]
+    for argv in (["kitti"], []):
+        with pytest.raises(SystemExit, match="item 13"):
+            cli.main(argv)
 
 
 def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
@@ -206,7 +208,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="item 13"):  # the KITTI track
         port_train.train_net(cfg.replace(data=dataclasses.replace(cfg.data, name="KITTI")),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):  # PointSea
-        port_train.train_net(cfg.replace(network=dataclasses.replace(cfg.network,
-                                                                     model="pointsea")),
-                             device="cpu")
+    # PointSea passes the checks and stops at the device, before any data.
+    pointsea = cfg.replace(network=dataclasses.replace(cfg.network, model="pointsea"))
+    loop.check_supported(pointsea)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_train.train_net(pointsea)
