@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's PCN, ShapeNet-55, GeoSpecNet and PointSea paths on
-one CUDA card: evaluation, the train steps in f32 and in bf16 mode, the
-adversarial 55 step, GeoSpecNet's GAN step, and the ``main_pcn`` /
-``main_55`` / ``main_geospec`` / ``main_pointsea`` entry points.
+"""Drive the PyTorch port's PCN, ShapeNet-55, GeoSpecNet, PointSea and KITTI
+paths on one CUDA card: evaluation, the train steps in f32 and in bf16 mode,
+the adversarial 55 step, GeoSpecNet's GAN step, the ``main_pcn`` /
+``main_55`` / ``main_geospec`` / ``main_pointsea`` / ``main_kitti`` entry
+points, ``--complete``, the EMD auction and PointNet++'s modules.
 
     python3 chip_smoke.py
 
@@ -123,7 +124,19 @@ Phases (any failure exits non-zero):
    moved); ``main_pointsea --epochs 1`` on a synthetic PCN tree, then
    ``--test`` in f32 and bf16; train ms/step in f32 and bf16 at B 12, eval
    completions/s at B 8, the render and the trunk alone, peak memory, and a
-   profile of the f32 step.
+   profile of the f32 step;
+12. the remaining surfaces: K2 on KITTI's zero-padded partials (60-511 valid
+   points of 2048, fewer than the picks) under C = 1, 2, 4, 8 and K1 with
+   zero-padded queries, bit for bit; ``main_kitti`` in f32 and bf16 on a
+   ``write_kitti_tree`` tree of 36 scans with a full-width PCN checkpoint
+   from a seed (exact launches, one PCD a scan, per-sample fidelity kernels
+   vs ``reference_ops()``, repeats bit-equal); ``main_pcn --complete`` on
+   10 scans of 300-5000 points (exact launches, the completions mapped back
+   into each scan's frame against the plain versions'); the EMD auction on
+   the card against the CPU (train point bit for bit on quantized inputs,
+   a permuted copy at the evaluation point); PointNet++ at its published
+   widths card against CPU; KITTI completions/s and the ``--complete``
+   forward in f32 and bf16, the EMD's ms a call.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -288,6 +301,31 @@ PS_BF16_EVAL = dict(GEO_EVAL, flash_attn=0, split_bf16x3=0, flash_attn_bf16=12)
 # The synthetic PCN tree of main_pointsea: 1 batch of 12 an epoch.
 TREE_MODELS_PS = {"train": 12, "val": 8, "test": 8}
 IMG_TOL = 1e-6  # the realistic renders on the card vs the CPU (the Gaussian's sum order)
+# The remaining surfaces. KITTI: a full-width PCN SVDFormer evaluated zero-shot
+# on synthetic car scans, three batches of 12; per batch K1 3 (SDG1, SDG2, the
+# fidelity's NN search), K2 4, K3 12 and the split 36 (bf16: the bf16 K3 12).
+KITTI_SCANS = 36
+KITTI_EVAL = dict(GEO_EVAL, nn_distance=3)
+KITTI_BF16_EVAL = dict(KITTI_EVAL, flash_attn=0, split_bf16x3=0, flash_attn_bf16=12)
+FIDELITY_GATE = 0.01  # |Δfidelity×10³| per sample: the metric gate (a mean distance, as CD-L1)
+# --complete: 10 scans of 300-5000 points in one batch of 10: K1 2 (SDG1, SDG2),
+# K2 4, K3 12, split 36; completions held to the CPU tests' 2e-3 (PCN frame).
+COMPLETE_SCANS = 10
+COMPLETE_LAUNCHES = dict(KITTI_EVAL, nn_distance=2)
+COMPLETE_ATOL = 2e-3
+# KITTI's zero-padded partials at K2 (valid points of 2048; SA1 picks 512, SA2
+# 128 of them) and at K1 (the fidelity's queries).
+KITTI_VALID = (60, 137, 300, 511)
+# The EMD auction: the train point at B 8 x 2048 on coordinates quantized to
+# 2^-6 (exact distances: card and CPU bit-equal), a permuted copy at the
+# evaluation point at B 2 x 8192.
+EMD_TRAIN = (0.005, 50)
+EMD_EVAL = (0.002, 10000)
+# PointNet++ at its published widths (Qi et al., NeurIPS 2017), B 8 x 2048:
+# the SSG classification stack, the MSG first layer, two FP modules back to
+# 2048 points, the vanilla PointNet extractor. K2 once a sampling SA / MSG.
+PN2_RTOL = 1e-5  # card vs CPU, relative to the output's largest entry
+PN2_LAUNCHES = {"fps": 3}
 SOURCES = {  # kernel -> (source in the repo, the TPU kernel it replaces)
     "nn_distance": ("svdformer_pointsea_tpu_torch/csrc/nn_distance.cu",
                     "svdformer_pointsea_tpu/ops/nn_pallas.py:59"),
@@ -2544,6 +2582,360 @@ def pointsea_times(torch, kernels, cfg, batch, eval_fn, eval_batch) -> Dict[str,
     return out
 
 
+def kitti_points_phase(torch, ops, kernels, g) -> Dict[str, float]:
+    """K2 on KITTI's zero-padded partials: 60, 137, 300 and 511 valid points
+    of 2048 (fewer than SA1's 512 picks, and than SA2's 128 but one), 2048 ->
+    512 and -> 128 at B 12 under C = 1, 2, 4, 8, bit-equal to the plain
+    version and on a repeat; K1 with zero-padded queries (the fidelity's
+    2048 -> 16384), bit for bit. Returns the max error per kernel."""
+    dev = torch.device("cuda")
+    sm = kernels.sm_count(dev)
+    for valid in KITTI_VALID:
+        x = torch.zeros(B_TRAIN, 2048, 3, device=dev)
+        x[:, :valid] = (torch.rand(B_TRAIN, valid, 3, device=dev, generator=g) - 0.5) * 0.8
+        for m in (512, 128):
+            want = ops.furthest_point_sample_ref(x, m)
+            same = []
+            for c in (1, 2, 4, 8):
+                plan = ops.fps_launch_plan(B_TRAIN, 2048, m, sm, cluster=c)
+                i = ops.fps._fps_kernel(x, m, plan)
+                same.append(torch.equal(i, want) and torch.equal(i, ops.fps._fps_kernel(x, m, plan)))
+            fallback = valid >= m or not bool(want[:, valid:].any())
+            print(f"K2 fps KITTI zero-padded B{B_TRAIN} 2048 ({valid} valid) -> {m}: bit-equal to "
+                  f"the plain version and on a repeat under C = 1, 2, 4, 8: {same}; picks past "
+                  f"the valid points fall back to index 0: {fallback}")
+            if not (all(same) and fallback):
+                fail(f"fps on zero-padded KITTI partials ({valid} valid, -> {m}) differs")
+    a = torch.zeros(B_TRAIN, 2048, 3, device=dev)
+    for r in range(B_TRAIN):
+        v = (KITTI_VALID + (2048,))[r % (len(KITTI_VALID) + 1)]
+        a[r, :v] = (torch.rand(v, 3, device=dev, generator=g) - 0.5) * 0.8
+    b = torch.rand(B_TRAIN, 16384, 3, device=dev, generator=g) - 0.5
+    d, i = ops.nn_one_way(a, b)
+    d2, i2 = ops.nn_one_way(a, b)
+    dp, ip = ops.nn_one_way_plain(a, b)
+    equal, repeat = torch.equal(d, dp) and torch.equal(i, ip), torch.equal(d, d2) and torch.equal(i, i2)
+    err = (d - dp).abs().max().item()
+    print(f"K1 nn_distance KITTI fidelity B{B_TRAIN} 2048 (zero-padded) -> 16384: d and idx "
+          f"bit-equal to the plain version {equal}, on a repeat {repeat}")
+    if not (equal and repeat):
+        fail("nn_distance with zero-padded queries differs from its plain version")
+    return {"fps": 0.0, "nn_distance": err}
+
+
+def kitti_phase(torch, kernels, root: str, ckpt: str):
+    """main_kitti (the working directory ``root`` holds a write_kitti_tree
+    tree of KITTI_SCANS scans) with the full-width PCN checkpoint ``ckpt``,
+    in f32 and in bf16: exact launches (3 batches of 12), the KITTI line, one
+    PCD a scan. Then each batch through the eval function with the kernels,
+    again, and under reference_ops(), default algorithms: per-sample
+    |Δfidelity×10³| <= FIDELITY_GATE in f32; in bf16 mode within the gate or
+    within the bf16 mode's own shift of that sample's plain fidelity from
+    f32, where that is larger (a mean over a scan's few real points carries
+    bf16's rounding: PERF.md §6); repeats bit-equal. Returns the
+    launches, the eval function and the first batch."""
+    from svdformer_pointsea_tpu_torch.cli import main_kitti
+    from svdformer_pointsea_tpu_torch.configs import kitti_config
+    from svdformer_pointsea_tpu_torch.data import Loader, make_dataset
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import (build_model, init_state,
+                                                    load_weights_into_state)
+    from svdformer_pointsea_tpu_torch.train.evaluate import make_kitti_eval_fn
+
+    launches = {}
+    n_batches = -(-KITTI_SCANS // B_TRAIN)
+    for precision in ("f32", "bf16"):
+        out = os.path.join(root, f"out_{precision}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        mean = main_kitti(["--weights", ckpt, "--out", out, "--precision", precision])
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        want = {k: n_batches * v
+                for k, v in (KITTI_BF16_EVAL if precision == "bf16" else KITTI_EVAL).items()}
+        written = [f for f in os.listdir(os.path.join(out, "benchmark")) if f.endswith(".pcd")]
+        print(f"main_kitti --precision {precision}: mean fidelity {mean:.6f} over "
+              f"{KITTI_SCANS} scans, {len(written)} PCDs written, "
+              f"{time.perf_counter() - t0:.1f} s; launches {got}")
+        if got != want:
+            fail(f"main_kitti {precision} launches {got}, expected {want}")
+        if len(written) != KITTI_SCANS or not math.isfinite(mean):
+            fail(f"main_kitti {precision}: {len(written)} PCDs, mean fidelity {mean}")
+        launches[f"kitti_{precision}_eval"] = got
+    cfg = kitti_config().replace(weights=ckpt)
+    model = load_weights_into_state(init_state(cfg, build_model(cfg, seed=SEED)), cfg).model
+    eval_fn = make_kitti_eval_fn(model, make_renderer(cfg))
+    batches = list(Loader(make_dataset(cfg, "test", seed=cfg.seed), cfg.train.batch_size))
+    rows = np.concatenate([b.data["partial_cloud"][:b.valid] for b in batches])
+    real = (np.abs(rows).sum(-1) > 0).sum(1)
+    print(f"KITTI scans: real points per scan {real.min()}-{real.max()} of {rows.shape[1]}, "
+          f"{(real < rows.shape[1]).sum()} of {len(real)} zero-padded")
+    plain_f32 = []  # the plain versions' f32 fidelity of each batch
+    for precision in ("f32", "bf16"):
+        worst, over, repeats = 0.0, 0.0, []
+        with mixed_precision(precision == "bf16"):
+            for bi, batch in enumerate(batches):
+                partial = torch.as_tensor(batch.data["partial_cloud"], device="cuda")
+                comp, f_k = eval_fn(partial)
+                comp2, f_k2 = eval_fn(partial)
+                repeats.append(torch.equal(comp, comp2) and torch.equal(f_k, f_k2))
+                with kernels.reference_ops():
+                    _, f_r = eval_fn(partial)
+                f_k, f_r = f_k[:batch.valid].cpu() * 1e3, f_r[:batch.valid].cpu() * 1e3
+                if not (torch.isfinite(f_k).all() and torch.isfinite(f_r).all()):
+                    fail("non-finite KITTI fidelity")
+                gap = (f_k - f_r).abs()
+                if precision == "f32":
+                    plain_f32.append(f_r)
+                    bound = torch.full_like(gap, FIDELITY_GATE)
+                else:  # the gate, or the bf16 mode's own shift of this sample from f32
+                    bound = (f_r - plain_f32[bi]).abs().clamp_min(FIDELITY_GATE)
+                worst = max(worst, gap.max().item())
+                over = max(over, (gap / bound).max().item())
+        print(f"kitti {precision} per-sample |Δfidelity×10³| kernels vs plain (default algorithms): "
+              f"max {worst:.3e}, at most {over:.3f} of its bound (" + (
+                  f"{FIDELITY_GATE}" if precision == "f32" else
+                  f"{FIDELITY_GATE}, or the plain bf16 fidelity's own shift from f32 where larger")
+              + f"); repeat of each batch bit-equal {repeats}")
+        if not over <= 1.0:
+            fail(f"kitti {precision} fidelity differs by {worst} (×10³) between kernels and plain")
+        if not all(repeats):
+            fail(f"a repeat of the kitti {precision} evaluation gave other bits")
+    return launches, eval_fn, batches[0]
+
+
+def complete_scans(rng: np.random.RandomState, root: str) -> str:
+    """COMPLETE_SCANS one-sided crops of ellipsoids (semi-axes 0.2-0.45),
+    300-5000 points each, away from the origin, as .pcd, .npy and .txt."""
+    from svdformer_pointsea_tpu_torch.data import IO
+
+    scans = os.path.join(root, "scans")
+    os.makedirs(scans)
+    for i in range(COMPLETE_SCANS):
+        n = rng.randint(300, 5001)
+        v = rng.randn(4 * n, 3)
+        pts = v / np.linalg.norm(v, axis=1, keepdims=True) * rng.uniform(0.2, 0.45, size=3)
+        cut = (pts[pts @ rng.randn(3) > 0][:n] + rng.uniform(-5, 5, size=3)).astype(np.float32)
+        path = os.path.join(scans, f"scan{i}{('.pcd', '.npy', '.txt')[i % 3]}")
+        (np.savetxt if path.endswith(".txt") else IO.put)(path, cut)
+    return scans
+
+
+def complete_phase(torch, kernels, root: str, ckpt: str):
+    """main_pcn --complete on COMPLETE_SCANS scans (one batch) with the
+    full-width PCN checkpoint: exact launches, one <stem>_completion.pcd a
+    scan; each written completion against the plain versions' completion of
+    the same resampled batch mapped back into its scan's frame (``/ scale +
+    centroid``), within COMPLETE_ATOL in the PCN frame. Returns the launches,
+    the call's seconds, the model and the batch."""
+    from svdformer_pointsea_tpu_torch.cli import main_pcn
+    from svdformer_pointsea_tpu_torch.configs import pcn_config
+    from svdformer_pointsea_tpu_torch.data import read_pcd
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.train import (build_model, infer, init_state,
+                                                    load_weights_into_state)
+
+    scans = complete_scans(np.random.RandomState(SEED + 31), root)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = main_pcn(["--complete", scans, "--weights", ckpt])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    print(f"main_pcn --complete ({COMPLETE_SCANS} scans of 300-5000 points, .pcd / .npy / .txt): "
+          f"{len(outs)} completions written, {wall:.1f} s (model build and checkpoint load "
+          f"included); launches {launches}")
+    if launches != COMPLETE_LAUNCHES:
+        fail(f"--complete launches {launches}, expected {COMPLETE_LAUNCHES}")
+    cfg = pcn_config().replace(weights=ckpt)
+    model = load_weights_into_state(init_state(cfg, build_model(cfg, seed=SEED)), cfg).model.eval()
+    render = make_renderer(cfg)
+    files = infer._collect_inputs(scans)
+    if not len(outs) == len(files) == COMPLETE_SCANS:
+        fail(f"--complete wrote {len(outs)} completions for {len(files)} scans")
+    rng = np.random.RandomState(1)  # infer_files' default seed: the same draws, in file order
+    frames, rows = [], []
+    for f in files:
+        xyz = infer._load_xyz(f)
+        pts, centroid, scale = infer._to_pcn_frame(xyz)
+        frames.append((xyz, centroid, scale))
+        rows.append(infer._resample(pts, cfg.data.n_points, rng))
+    batch = torch.as_tensor(np.stack(rows), device="cuda")
+    with kernels.reference_ops(), torch.inference_mode():
+        plain = model(batch, render.get_img(batch))[-1].cpu().numpy()
+    worst, offsets = 0.0, []
+    for out, (xyz, centroid, scale), comp in zip(outs, frames, plain):
+        written = read_pcd(out)
+        worst = max(worst, float(np.abs(written - (comp / scale + centroid)).max()) * scale)
+        offsets.append(float(np.abs(written.mean(0) - xyz.mean(0)).max()))
+    print(f"--complete completions in their scans' frames vs the plain versions' mapped back: max "
+          f"|Δ| {worst:.3e} in the PCN frame (bound {COMPLETE_ATOL}); completion centroid - scan "
+          f"centroid {min(offsets):.3f}-{max(offsets):.3f} per axis (random weights)")
+    if not worst <= COMPLETE_ATOL:
+        fail(f"--complete completions differ by {worst} from the plain versions'")
+    return launches, wall, model, batch
+
+
+def remaining_times(torch, kernels, eval_fn, kitti_batch, model, complete_batch) -> None:
+    """KITTI completions/s at B 12 (render + forward + fidelity) in f32 and
+    bf16 mode, and --complete's forward in scans/s, kernels and plain in
+    turns (plain, kernels, kernels, plain; 5 calls after 1 warm-up)."""
+    from svdformer_pointsea_tpu_torch.nn import mixed_precision
+    from svdformer_pointsea_tpu_torch.render import make_renderer
+    from svdformer_pointsea_tpu_torch.configs import pcn_config
+
+    partial = torch.as_tensor(kitti_batch.data["partial_cloud"], device="cuda")
+    render = make_renderer(pcn_config())
+
+    def complete():
+        with torch.inference_mode():
+            model(complete_batch, render.get_img(complete_batch))
+
+    for label, fn, n in (("kitti", lambda: eval_fn(partial), partial.shape[0]),
+                         ("--complete forward", complete, complete_batch.shape[0])):
+        for precision in ("f32", "bf16"):
+            rates = {"kernels": [], "plain": []}
+            with mixed_precision(precision == "bf16"):
+                for mode in ("plain", "kernels", "kernels", "plain"):
+                    ctx = kernels.reference_ops() if mode == "plain" else contextlib.nullcontext()
+                    with ctx:
+                        rates[mode].append(n * 1000.0 / cuda_ms(fn, iters=5, warmup=1))
+            print(f"{label} {precision} {'completions' if label == 'kitti' else 'scans'}/s at "
+                  f"B={n}: kernels " + ", ".join(f"{r:.2f}" for r in rates["kernels"])
+                  + "; plain " + ", ".join(f"{r:.2f}" for r in rates["plain"]))
+
+
+def emd_phase(torch) -> None:
+    """The EMD auction on the card against the CPU: at the train point, B 8 x
+    2048 on coordinates quantized to 2^-6, dist, assignment and the gradient
+    of Σ w·dist bit-equal (and every budgeted iteration used where points are
+    left unassigned); a permuted copy at B 2 x 8192 at the evaluation point
+    converges with 0 unassigned in the CPU's iteration count. Prints the ms a
+    call at both points."""
+    from svdformer_pointsea_tpu_torch.ops import (earth_mover_distance, emd_convergence,
+                                                  emd_unassigned)
+
+    gen = torch.Generator().manual_seed(SEED + 32)
+    x1 = torch.randint(0, 64, (B_MAIN, 2048, 3), generator=gen) / 64.0
+    x2 = torch.randint(0, 64, (B_MAIN, 2048, 3), generator=gen) / 64.0
+    w = torch.randint(-8, 8, (B_MAIN, 2048), generator=gen) / 8.0
+    res = {}
+    for dev in ("cuda", "cpu"):
+        a = x1.detach().to(dev).requires_grad_(True)
+        dist, assignment = earth_mover_distance(a, x2.to(dev), *EMD_TRAIN)
+        (dist * w.to(dev)).sum().backward()
+        res[dev] = (dist.detach().cpu(), assignment.cpu(), a.grad.cpu())
+    equal = [torch.equal(c, p) for c, p in zip(res["cuda"], res["cpu"])]
+    x1c, x2c = x1.cuda(), x2.cuda()
+    _, _, used = emd_convergence(x1c, x2c, *EMD_TRAIN)
+    unassigned = emd_unassigned(res["cpu"][1])
+    full = int(used) == EMD_TRAIN[1] if int(unassigned.sum()) else True
+    train_ms = [cuda_ms(lambda: emd_convergence(x1c, x2c, *EMD_TRAIN), iters=3, warmup=1)
+                for _ in range(2)]
+    print(f"EMD train point (eps {EMD_TRAIN[0]}, iters {EMD_TRAIN[1]}) B{B_MAIN}x2048 quantized, "
+          f"card vs CPU: dist, assignment, gradient bit-equal {equal}; unassigned per sample "
+          f"{unassigned.tolist()}, iterations used {int(used)} (all of the budget: {full}); "
+          f"{', '.join(f'{t:.2f}' for t in train_ms)} ms a call on the card")
+    if not (all(equal) and full):
+        fail("the EMD auction on the card differs from the CPU")
+    x = torch.rand(2, 8192, 3, generator=gen)
+    perm = torch.stack([torch.randperm(8192, generator=gen) for _ in range(2)])
+    y = x.gather(1, perm[..., None].expand(-1, -1, 3))
+    xc, yc = x.cuda(), y.cuda()
+    d_c, a_c, u_c = emd_convergence(xc, yc, *EMD_EVAL)
+    d_p, a_p, u_p = emd_convergence(x, y, *EMD_EVAL)
+    eval_ms = [cuda_ms(lambda: emd_convergence(xc, yc, *EMD_EVAL), iters=3, warmup=1)
+               for _ in range(2)]
+    ok = (int(emd_unassigned(a_c).max()) == 0 and int(u_c) == int(u_p)
+          and torch.equal(a_c.cpu(), a_p) and torch.equal(a_c.cpu(), perm.argsort(1).int()))
+    print(f"EMD evaluation point (eps {EMD_EVAL[0]}, iters {EMD_EVAL[1]}) permuted copy B2x8192: "
+          f"unassigned {emd_unassigned(a_c).tolist()}, iterations used card {int(u_c)} / CPU "
+          f"{int(u_p)}, sum of dist {d_c.sum().item():.3e}, assignment the inverse permutation "
+          f"{ok}; {', '.join(f'{t:.2f}' for t in eval_ms)} ms a call on the card")
+    if not ok:
+        fail("the EMD auction did not converge on the permuted copy as on the CPU")
+
+
+def pointnet2_phase(torch, ops, kernels) -> Dict[str, int]:
+    """PointNet++ at its published widths, B 8 x 2048 quantized to 2^-6,
+    eval mode, on the card against the same modules on the CPU: the SSG
+    classification stack (SA 512 / 0.2 / 32 [64, 64, 128], SA 128 / 0.4 / 64
+    [128, 128, 256], group-all [256, 512, 1024]), the MSG first layer (512,
+    radii 0.1 / 0.2 / 0.4, 16 / 32 / 128 points, [32, 32, 64], [64, 64, 128],
+    [64, 96, 128]), two FP modules back to 2048 points and the vanilla
+    PointNet extractor (64, 128) -> 1024 with its per-point features. Every
+    output within PN2_RTOL of its largest entry, the ball-query indices and
+    the FPS centres bit-equal, K2 launched once a sampling module. Returns
+    the launches."""
+    import copy
+
+    from svdformer_pointsea_tpu_torch.nn import (PointNetFeatureExtractor, PointNetFPModule,
+                                                 PointNetSAModule, PointNetSAModuleMSG)
+
+    torch.manual_seed(SEED + 33)
+    radii, nsamples = (0.1, 0.2, 0.4), (16, 32, 128)
+    mods = {
+        "sa1": PointNetSAModule(512, 32, 0.2, 0, (64, 64, 128)),
+        "sa2": PointNetSAModule(128, 64, 0.4, 128, (128, 128, 256)),
+        "sa3": PointNetSAModule(None, None, None, 256, (256, 512, 1024), group_all=True),
+        "msg": PointNetSAModuleMSG(512, radii, nsamples, 0,
+                                   ((32, 32, 64), (64, 64, 128), (64, 96, 128))),
+        "fp2": PointNetFPModule(256 + 128, (256, 256), use_points1=True),
+        "fp1": PointNetFPModule(256, (256, 128)),
+        "pointnet": PointNetFeatureExtractor(3, 1024, (64, 128), global_feat=False),
+    }
+    rng = np.random.RandomState(SEED + 33)
+    xyz = torch.as_tensor((rng.randint(0, 64, size=(B_MAIN, 2048, 3)) / 64.0).astype(np.float32))
+
+    def run(m, x):
+        with torch.no_grad():
+            l1_xyz, l1 = m["sa1"](x, None)
+            l2_xyz, l2 = m["sa2"](l1_xyz, l1)
+            _, l3 = m["sa3"](l2_xyz, l2)
+            m_xyz, m_feat = m["msg"](x, None)
+            f2 = m["fp2"](l1_xyz, l2_xyz, l1, l2)
+            f1 = m["fp1"](x, l1_xyz, None, f2)
+            pn = m["pointnet"](x)
+        return {"sa1": l1, "sa2": l2, "sa3": l3, "msg": m_feat, "fp2": f2, "fp1": f1,
+                "pointnet": pn, "sa1 centres": l1_xyz, "sa2 centres": l2_xyz,
+                "msg centres": m_xyz}
+
+    cpu = {k: copy.deepcopy(v).eval() for k, v in mods.items()}
+    card = {k: v.cuda().eval() for k, v in mods.items()}
+    x = xyz.cuda()
+    kernels.reset_launches()
+    got = run(card, x)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    want = run(cpu, xyz)
+    worst = {k: (got[k].cpu() - want[k]).abs().max().item() / want[k].abs().max().item()
+             for k in ("sa1", "sa2", "sa3", "msg", "fp2", "fp1", "pointnet")}
+    centres = all(torch.equal(got[k].cpu(), want[k]) for k in
+                  ("sa1 centres", "sa2 centres", "msg centres"))
+    plain = torch.equal(got["sa1 centres"], ops.gather_points(
+        x, ops.furthest_point_sample_ref(x, 512)))
+    sites = [(0.2, 32, "sa1", None), (0.4, 64, "sa2", "sa1 centres")] + [
+        (r, k, "msg", None) for r, k in zip(radii, nsamples)]
+    balls = []
+    for r, k, centres_of, src in sites:
+        pts_c, pts_p = (x, xyz) if src is None else (got[src], want[src])
+        key = centres_of + " centres"
+        balls.append(torch.equal(ops.ball_query(r, k, pts_c, got[key]).cpu(),
+                                 ops.ball_query(r, k, pts_p, want[key])))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: run(card, x), iters=3, warmup=1)
+    print(f"PointNet++ B{B_MAIN}x2048 (published widths) card vs CPU: max |Δ| / max|ref| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (bound {PN2_RTOL}); FPS "
+          f"centres bit-equal {centres} (K2 vs plain on the card {plain}); ball-query indices "
+          f"bit-equal {balls}; launches {launches}; {ms:.2f} ms for the whole set on the card")
+    if not (max(worst.values()) <= PN2_RTOL and centres and plain and all(balls)):
+        fail("PointNet++ modules on the card differ from the CPU")
+    if {k: v for k, v in launches.items() if v} != PN2_LAUNCHES:
+        fail(f"PointNet++ launches {launches}, expected {PN2_LAUNCHES}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2560,7 +2952,9 @@ def main() -> int:
                                                       pointsea_config, shapenet55_config)
     from svdformer_pointsea_tpu_torch.nn import flash, mixed_precision
     from svdformer_pointsea_tpu_torch.render import make_renderer
-    from svdformer_pointsea_tpu_torch.train import build_model, init_state, make_train_step
+    from svdformer_pointsea_tpu_torch.data.synthetic import write_kitti_tree
+    from svdformer_pointsea_tpu_torch.train import (build_model, init_state, make_train_step,
+                                                    save_checkpoint)
     from svdformer_pointsea_tpu_torch.train.evaluate import disable_tf32
 
     t_start = time.perf_counter()
@@ -2735,6 +3129,32 @@ def main() -> int:
     pointsea_times(torch, kernels, cfg_ps, gan_batch, ps_eval_fn, batches[0])
     del ps_model, ps_eval_fn
     print(f"PointSea part: {time.perf_counter() - tps:.1f} s")
+    torch.cuda.empty_cache()
+
+    # The remaining surfaces: K2 / K1 on KITTI's zero-padded scans, main_kitti
+    # and main_pcn --complete with a full-width PCN checkpoint, the EMD
+    # auction, PointNet++'s modules, the timings.
+    trest = time.perf_counter()
+    for name, e in kitti_points_phase(torch, ops, kernels, g).items():
+        max_err[name] = max(max_err[name], e)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        write_kitti_tree(root, np.random.RandomState(SEED + 30), KITTI_SCANS)
+        ckpt = os.path.join(root, "svdformer-pcn-seed.pt")
+        save_checkpoint(ckpt, init_state(cfg, build_model(cfg, seed=SEED)), 1, 0.0)
+        os.chdir(root)
+        try:
+            kitti, kitti_eval_fn, kitti_batch = kitti_phase(torch, kernels, root, ckpt)
+            paths.update(kitti)
+            paths["complete"], _, c_model, c_batch = complete_phase(torch, kernels, root, ckpt)
+        finally:
+            os.chdir(cwd)
+    remaining_times(torch, kernels, kitti_eval_fn, kitti_batch, c_model, c_batch)
+    del kitti_eval_fn, c_model, c_batch
+    torch.cuda.empty_cache()
+    emd_phase(torch)
+    paths["pointnet2"] = pointnet2_phase(torch, ops, kernels)
+    print(f"Remaining-surfaces part: {time.perf_counter() - trest:.1f} s")
 
     report = {"kernels": []}
     for name in kernels.KERNEL_NAMES:

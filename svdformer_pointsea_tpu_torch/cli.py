@@ -1,19 +1,22 @@
-"""Command-line entry points of the PCN, ShapeNet-55, GeoSpecNet and PointSea
-tracks (semantics of svdformer_pointsea_tpu/cli.py ``main_pcn`` / ``main_55``
-/ ``main_geospec`` / ``main_pointsea``): training by default, evaluation of
-``--weights`` with ``--test`` or ``--inference``.
+"""Command-line entry points of the PCN, ShapeNet-55, GeoSpecNet, PointSea
+and KITTI tracks (semantics of svdformer_pointsea_tpu/cli.py ``main_pcn`` /
+``main_55`` / ``main_geospec`` / ``main_pointsea`` / ``main_kitti``):
+training by default, evaluation of ``--weights`` with ``--test`` or
+``--inference`` (KITTI evaluates only), and on every track ``--complete PATH``:
+completion of a user's scans with ``--weights`` (``train/infer.py``).
 
     python -m svdformer_pointsea_tpu_torch.cli pcn [--test|--inference] [--weights CKPT]
         [--out DIR] [--epochs N] [--precision f32|bf16] [--progress]
+        [--complete PATH [--no-normalize]]
     python -m svdformer_pointsea_tpu_torch.cli 55 [the same flags]
         [--mode easy|median|hard] [--dataset 55|34|unseen21]
     python -m svdformer_pointsea_tpu_torch.cli geospec [the same flags as pcn] [--run_id N]
     python -m svdformer_pointsea_tpu_torch.cli pointsea [the same flags as pcn]
+    python -m svdformer_pointsea_tpu_torch.cli kitti --weights CKPT [the same flags as pcn]
 
-They run on the CUDA card unless ``main_pcn`` / ``main_55`` / ``main_geospec``
-/ ``main_pointsea`` is called with ``device="cpu"``. The JAX package's
-``--sp`` (> 1), ``--dp shard_map`` and ``--complete`` are parsed and refused
-with the ROADMAP item that ports them.
+They run on the CUDA card unless the ``main_*`` function is called with
+``device="cpu"``. The JAX package's ``--sp`` (> 1) and ``--dp shard_map``
+are parsed and refused with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Optional, Sequence
 from svdformer_pointsea_tpu_torch.configs import (
     Config,
     geospec_config,
+    kitti_config,
     pcn_config,
     pointsea_config,
     shapenet34_config,
@@ -36,8 +40,8 @@ from svdformer_pointsea_tpu_torch.configs import (
 
 
 def _parser(track: str = "pcn") -> argparse.ArgumentParser:
-    model = {"geospec": "GeoSpecNet on pcn", "pointsea": "PointSea on pcn"}.get(
-        track, f"SVDFormer on {track}")
+    model = {"geospec": "GeoSpecNet on pcn", "pointsea": "PointSea on pcn",
+             "kitti": "a PCN-trained SVDFormer on kitti"}.get(track, f"SVDFormer on {track}")
     p = argparse.ArgumentParser(description=f"{model}, PyTorch / CUDA port")
     p.add_argument("--test", action="store_true", help="evaluate --weights on the test split")
     p.add_argument("--inference", action="store_true", help="the same as --test")
@@ -48,12 +52,16 @@ def _parser(track: str = "pcn") -> argparse.ArgumentParser:
                    help="f32 (default, reference-faithful) or bf16: bf16 image trunk and "
                         "flash-attention kernels, f32 parameters and optimizer")
     p.add_argument("--progress", action="store_true", help="live per-batch loss line")
+    p.add_argument("--complete", default=None, metavar="PATH",
+                   help="complete a .pcd/.npy/.h5/.txt file or a directory of them with "
+                        "--weights, writing <stem>_completion.pcd beside each (or under --out)")
+    p.add_argument("--no-normalize", action="store_true",
+                   help="with --complete: feed the scans as they are, not moved into the PCN "
+                        "frame (centroid at the origin, largest radius 0.5) and back")
     # Flags of the JAX package that this port refuses (ROADMAP queue A).
     p.add_argument("--sp", type=int, default=None, help="not ported: multi-GPU, item 15")
     p.add_argument("--dp", default=None, choices=["gspmd", "shard_map"],
                    help="not ported beyond one card: multi-GPU, item 15")
-    p.add_argument("--complete", default=None, metavar="PATH",
-                   help="not ported: standalone completion, item 13")
     if track == "55":
         p.add_argument("--mode", default=None, choices=["easy", "median", "hard"],
                        help="evaluation crop difficulty (default easy)")
@@ -73,9 +81,6 @@ def _refuse_unported(args) -> None:
     if args.dp == "shard_map":
         raise SystemExit("--dp shard_map: multi-GPU data parallelism is not ported yet "
                          "(ROADMAP queue A item 15)")
-    if args.complete is not None:
-        raise SystemExit("--complete: standalone completion is not ported yet "
-                         "(ROADMAP queue A item 13)")
 
 
 def _apply_overrides(cfg: Config, args) -> Config:
@@ -99,6 +104,15 @@ def _dispatch(cfg: Config, args, device: Optional[str], **test_kw):
 
     print("Use config:")
     pprint(cfg)
+    if args.complete is not None:
+        if cfg.weights is None:
+            raise SystemExit("--complete needs a trained checkpoint (--weights)!")
+        from svdformer_pointsea_tpu_torch.train.infer import infer_files
+
+        outs = infer_files(cfg, args.complete, out_dir=args.out, normalize=not args.no_normalize,
+                           device=device)
+        print(f"wrote {len(outs)} completions")
+        return outs
     if not args.test and not args.inference:
         if cfg.network.model == "geospecnet":
             return train.train_net_gan(cfg, device=device)
@@ -156,19 +170,27 @@ def main_pointsea(argv: Optional[Sequence[str]] = None, device: Optional[str] = 
     return _dispatch(_apply_overrides(pointsea_config(), args), args, device)
 
 
-_TRACKS = {"pcn": main_pcn, "55": main_55, "geospec": main_geospec, "pointsea": main_pointsea}
+def main_kitti(argv: Optional[Sequence[str]] = None, device: Optional[str] = None):
+    """Evaluate a PCN-trained SVDFormer (``--weights``, required) on KITTI's
+    car scans, zero-shot: always ``--test``. Returns ``test_net``'s mean
+    fidelity (or, with ``--complete``, the completions written)."""
+    args = _setup("kitti", argv)
+    args.test = True
+    return _dispatch(_apply_overrides(kitti_config(), args), args, device)
+
+
+_TRACKS = {"pcn": main_pcn, "55": main_55, "geospec": main_geospec, "pointsea": main_pointsea,
+           "kitti": main_kitti}
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """``python -m svdformer_pointsea_tpu_torch.cli <track> [flags]``; the
-    port has the ``pcn``, ``55``, ``geospec`` and ``pointsea`` tracks."""
+    """``python -m svdformer_pointsea_tpu_torch.cli <track> [flags]``, the
+    track one of ``pcn``, ``55``, ``geospec``, ``pointsea`` and ``kitti``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in _TRACKS:
         track = argv[0] if argv else "no track"
         raise SystemExit(f"usage: python -m svdformer_pointsea_tpu_torch.cli "
-                         f"pcn|55|geospec|pointsea [flags]; the port has the PCN, ShapeNet-55, "
-                         f"GeoSpecNet and PointSea tracks ({track}: KITTI is ROADMAP queue A "
-                         f"item 13)")
+                         f"{'|'.join(_TRACKS)} [flags] (got {track})")
     return _TRACKS[argv[0]](argv[1:])
 
 

@@ -1,7 +1,7 @@
-"""The configuration fields the PCN, ShapeNet-55, GeoSpecNet and PointSea
-tracks read: the evaluation paths, the train steps and the ``main_pcn`` /
-``main_55`` / ``main_geospec`` / ``main_pointsea`` orchestration (values of
-svdformer_pointsea_tpu/configs/base.py)."""
+"""The configuration fields the PCN, ShapeNet-55, GeoSpecNet, PointSea and
+KITTI tracks read: the evaluation paths, the train steps and the ``main_pcn``
+/ ``main_55`` / ``main_geospec`` / ``main_pointsea`` / ``main_kitti``
+orchestration (values of svdformer_pointsea_tpu/configs/base.py)."""
 
 from __future__ import annotations
 
@@ -32,12 +32,14 @@ class DataConfig:
     """Dataset paths and sizes (config_pcn.py / config_55.py). The paths are
     relative to the working directory, as in the reference."""
 
-    name: str = "ShapeNet"  # "ShapeNet" (PCN) | "ShapeNet55"; KITTI is ROADMAP queue A item 13
+    name: str = "ShapeNet"  # "ShapeNet" (PCN) | "ShapeNet55" | "KITTI"
     category_file: str = "datasets/ShapeNet.json"
     n_renderings: int = 8  # partial scans per training model
     n_points: int = 2048  # points of a partial cloud
     partial_points_path: str = "./dataset/PCN/%s/partial/%s/%s/%02d.pcd"
     complete_points_path: str = "./dataset/PCN/%s/complete/%s/%s.pcd"
+    # KITTI only: each car's 8 bounding-box corners, for its pose normalisation.
+    bbox_path: str = "./dataset/KITTI/bboxes/%s.txt"
     gt_points: int = 16384  # points of a complete cloud (8192 on ShapeNet-55)
     mode: str = "easy"  # ShapeNet-55 evaluation crop: "easy" | "median" | "hard"
     num_workers: int = 4  # loader IO threads
@@ -125,6 +127,19 @@ def geospec_config() -> Config:
     return Config(network=NetworkConfig(model="geospecnet"),
                   train=TrainConfig(sqrt_loss=True, partial_matching=True),
                   out_path="out/geospecnet_pcn")
+
+
+def kitti_config() -> Config:
+    """Zero-shot evaluation of a PCN-trained SVDFormer on KITTI's LiDAR car
+    scans (``datasets/KITTI.json``, ``cars/<id>.pcd`` and ``bboxes/<id>.txt``;
+    no ground truth): the PCN model and sizes, each scan pose-normalised by
+    its bounding box."""
+    return Config(
+        data=DataConfig(name="KITTI", category_file="datasets/KITTI.json",
+                        partial_points_path="./dataset/KITTI/cars/%s.pcd",
+                        bbox_path="./dataset/KITTI/bboxes/%s.txt", n_renderings=1),
+        out_path="out/svdformer_kitti",
+    )
 
 
 def pointsea_config() -> Config:

@@ -1,8 +1,9 @@
-"""The PCN and ShapeNet-55 datasets (semantics of
-svdformer_pointsea_tpu/data/datasets.py ``PCNDataset``, ``ShapeNet55Dataset``
-and ``make_dataset``): PCN's ShapeNet.json index, partial scans and complete
-clouds as PCD files; ShapeNet-55's index files and complete clouds as
-``.npy`` files, at ``cfg.data``'s paths."""
+"""The PCN, ShapeNet-55 and KITTI datasets (semantics of
+svdformer_pointsea_tpu/data/datasets.py ``PCNDataset``, ``ShapeNet55Dataset``,
+``KITTIDataset`` and ``make_dataset``): PCN's ShapeNet.json index, partial
+scans and complete clouds as PCD files; ShapeNet-55's index files and
+complete clouds as ``.npy`` files; KITTI's KITTI.json index, car scans as
+PCD files and bounding boxes as text, at ``cfg.data``'s paths."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import List
 
 import numpy as np
 
-from svdformer_pointsea_tpu_torch.data.io import read_npy, read_pcd
+from svdformer_pointsea_tpu_torch.data.io import IO, read_npy, read_pcd
 from svdformer_pointsea_tpu_torch.data.transforms import Compose, pc_norm
 
 SUBSETS = ("train", "val", "test")
@@ -114,10 +115,49 @@ class ShapeNet55Dataset:
         return s.taxonomy_id, s.model_id, {"gtcloud": gt}
 
 
+class KITTIDataset:
+    """KITTI's LiDAR car scans for zero-shot evaluation (no ground truth).
+    ``KITTI.json`` lists the ``test`` ids (``subset`` is ignored); each
+    sample is its scan pose-normalised by its bounding box (``gt_path``
+    holds the box's path), then sampled to ``n_points`` rows, zero-padded
+    where the scan is shorter: ``{"partial_cloud"}``."""
+
+    def __init__(self, cfg, subset: str = "test", seed: int = 0):
+        self.rng = np.random.RandomState(seed)
+        with open(cfg.data.category_file) as f:
+            categories = json.load(f)
+        self.samples = [Sample(dc["taxonomy_id"], s, [cfg.data.partial_points_path % s],
+                               cfg.data.bbox_path % s)
+                        for dc in categories for s in dc.get("test", [])]
+        logging.info("Indexed %d KITTI samples", len(self.samples))
+        self.transforms = Compose([
+            {"callback": "NormalizeObjectPose",
+             "parameters": {"input_keys": {"ptcloud": "partial_cloud", "bbox": "bounding_box"}},
+             "objects": ["partial_cloud", "bounding_box"]},
+            {"callback": "RandomSamplePoints", "parameters": {"n_points": cfg.data.n_points},
+             "objects": ["partial_cloud"]},
+            {"callback": "ToArray", "objects": ["partial_cloud"]},
+        ], self.rng)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, idx: int, rng=None):
+        """(taxonomy id, model id, {"partial_cloud"})."""
+        s = self.samples[idx]
+        data = {"partial_cloud": IO.get(s.partial_paths[0]).astype(np.float32),
+                "bounding_box": IO.get(s.gt_path).astype(np.float32)}
+        data = self.transforms(data, rng=rng)
+        data.pop("bounding_box", None)
+        return s.taxonomy_id, s.model_id, data
+
+
+DATASET_MAPPING = {"ShapeNet": PCNDataset, "ShapeNet55": ShapeNet55Dataset, "KITTI": KITTIDataset}
+
+
 def make_dataset(cfg, subset: str, seed: int = 0):
-    if cfg.data.name == "ShapeNet55":
-        return ShapeNet55Dataset(cfg, subset, seed=seed)
-    if cfg.data.name != "ShapeNet":
-        raise NotImplementedError(f"dataset {cfg.data.name!r} is not ported: the port has PCN "
-                                  "and ShapeNet-55 (KITTI is ROADMAP queue A item 13)")
-    return PCNDataset(cfg, subset, seed=seed)
+    """The dataset ``cfg.data.name`` names, over its ``subset``."""
+    if cfg.data.name not in DATASET_MAPPING:
+        raise NotImplementedError(f"dataset {cfg.data.name!r} is unknown: the port has "
+                                  f"{sorted(DATASET_MAPPING)}")
+    return DATASET_MAPPING[cfg.data.name](cfg, subset, seed=seed)

@@ -1,10 +1,12 @@
-"""Point-cloud files: the PCD reader and writer and the ``.npy`` reader
-(semantics of svdformer_pointsea_tpu/data/io.py ``_read_pcd_python``,
-``write_pcd`` and the ``.npy`` branch of ``IO.get``).
+"""Point-cloud files: the PCD reader and writer, and ``IO``, which reads
+``.pcd``, ``.npy``, ``.txt`` and ``.h5`` files and writes ``.pcd``, ``.npy``
+and ``.h5`` by extension (semantics of svdformer_pointsea_tpu/data/io.py
+``_read_pcd_python``, ``write_pcd`` and ``IO``).
 
 The JAX package reads PCD through a native C++ parser with this numpy reader
-as its fallback; the port has the numpy reader only (the native one is listed
-in ROADMAP queue A).
+as its fallback; the port has the numpy reader only. The native reader, the
+byte cache and the image and EXR readers are listed in ROADMAP queue A.
+``h5py`` is imported only where an ``.h5`` file is read or written.
 """
 
 from __future__ import annotations
@@ -72,3 +74,44 @@ def write_pcd(file_path: str, points: np.ndarray) -> None:
 def read_npy(file_path: str) -> np.ndarray:
     """The array of a ``.npy`` file (ShapeNet-55's complete clouds, (N, 3))."""
     return np.load(file_path)
+
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(".h5 point files need the h5py package, which is not installed") from e
+    return h5py
+
+
+class IO:
+    """Point files by extension: ``get`` reads ``.pcd`` (xyz), ``.npy``,
+    ``.txt`` (``np.loadtxt``: KITTI's bounding boxes) and ``.h5`` (the
+    ``data`` dataset); ``put`` writes ``.pcd``, ``.npy`` and ``.h5``."""
+
+    @classmethod
+    def get(cls, file_path: str) -> np.ndarray:
+        ext = os.path.splitext(file_path)[1]
+        if ext == ".pcd":
+            return read_pcd(file_path)
+        if ext == ".npy":
+            return read_npy(file_path)
+        if ext == ".txt":
+            return np.loadtxt(file_path)
+        if ext == ".h5":
+            with _h5py().File(file_path, "r") as f:
+                return f["data"][()]
+        raise ValueError(f"Unsupported file extension: {ext}")
+
+    @classmethod
+    def put(cls, file_path: str, content: np.ndarray) -> None:
+        ext = os.path.splitext(file_path)[1]
+        if ext == ".pcd":
+            write_pcd(file_path, content)
+        elif ext == ".h5":
+            with _h5py().File(file_path, "w") as f:
+                f.create_dataset("data", data=content)
+        elif ext == ".npy":
+            np.save(file_path, content)
+        else:
+            raise ValueError(f"Unsupported file extension: {ext}")

@@ -6,14 +6,16 @@ working directory:
   ``dataset/PCN/<subset>/complete/<taxonomy>/<model>.pcd`` with
   ``partial/<taxonomy>/<model>/<NN>.pcd`` beside it;
 - ShapeNet-55 (``configs.shapenet55_config()``): ``datasets/ShapeNet55/
-  {train,test}.txt`` and ``shapenet_pc/<taxonomy>-<model>.npy``.
+  {train,test}.txt`` and ``shapenet_pc/<taxonomy>-<model>.npy``;
+- KITTI (``configs.kitti_config()``): ``datasets/KITTI.json``,
+  ``dataset/KITTI/cars/<id>.pcd`` and ``dataset/KITTI/bboxes/<id>.txt``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -79,3 +81,66 @@ def write_55_tree(root: str, rng: np.random.RandomState, models: Dict[str, int],
             names.append(name)
         with open(os.path.join(root, "datasets", index_dir, f"{subset}.txt"), "w") as f:
             f.write("\n".join(names) + "\n")
+
+
+KITTI_CAR = "02958343"  # ShapeNet's car taxonomy, KITTI.json's one category
+
+
+def _box_scan(rng: np.random.RandomState, n: int):
+    """A car-sized box (length 3.5-4.5, width 1.5-1.8, height 1.4-1.6) on
+    the ground 1.7 below a sensor at the origin, yawed at random and 5-30
+    ahead, and ``n`` points on two or three of its faces the sensor sees
+    (the near side, the near end, sometimes the roof), with 1 cm noise.
+    Returns (points (n, 3), the 8 corners (8, 3)): corners 0-3 on the
+    ground, 0 -> 3 along the length, 4-7 above them."""
+    length, width, height = rng.uniform(3.5, 4.5), rng.uniform(1.5, 1.8), rng.uniform(1.4, 1.6)
+    yaw = rng.uniform(-np.pi, np.pi)
+    rot = np.asarray([[np.cos(yaw), -np.sin(yaw), 0.0], [np.sin(yaw), np.cos(yaw), 0.0],
+                      [0.0, 0.0, 1.0]])
+    offset = np.asarray([rng.uniform(5.0, 30.0), rng.uniform(-10.0, 10.0), -1.7])
+    hl, hw = length / 2, width / 2
+    local = np.asarray([[-hl, -hw, 0], [-hl, hw, 0], [hl, hw, 0], [hl, -hw, 0]], np.float64)
+    corners = np.concatenate([local, local + [0, 0, height]])
+    sensor = rot.T @ -offset  # the sensor in the box's frame
+    side, end = np.sign(sensor[1]) * hw, np.sign(sensor[0]) * hl
+    faces = [lambda u, v: np.stack([(2 * u - 1) * hl, np.full_like(u, side), v * height], -1),
+             lambda u, v: np.stack([np.full_like(u, end), (2 * u - 1) * hw, v * height], -1)]
+    if rng.rand() < 0.5:
+        faces.append(lambda u, v: np.stack([(2 * u - 1) * hl, (2 * v - 1) * hw,
+                                            np.full_like(u, height)], -1))
+    which = rng.randint(len(faces), size=n)
+    u, v = rng.rand(n), rng.rand(n)
+    pts = np.empty((n, 3))
+    for i, face in enumerate(faces):
+        pts[which == i] = face(u[which == i], v[which == i])
+    pts += 0.01 * rng.randn(n, 3)
+    return ((pts @ rot.T) + offset).astype(np.float32), corners @ rot.T + offset
+
+
+def write_kitti_tree(root: str, rng: np.random.RandomState, n_scans: int,
+                     points: Tuple[int, int] = (60, 3000), n_points: int = 2048) -> List[str]:
+    """Write ``n_scans`` synthetic car scans in KITTI's layout: each a
+    :func:`_box_scan`, its corners as text, and the index of one category
+    with only ``test`` ids. Returns the ids. Point counts lie in ``points``:
+    most are drawn log-uniformly below the model's ``n_points``, so that the
+    loader zero-pads them, as it does most real scans; every eighth scan
+    (ids 7, 15, ...) is drawn uniformly above it."""
+    cars = os.path.join(root, "dataset", "KITTI", "cars")
+    boxes = os.path.join(root, "dataset", "KITTI", "bboxes")
+    os.makedirs(cars, exist_ok=True)
+    os.makedirs(boxes, exist_ok=True)
+    ids = []
+    for i in range(n_scans):
+        if i % 8 == 7:
+            n = rng.randint(n_points + 1, points[1] + 1)
+        else:
+            n = int(np.exp(rng.uniform(np.log(points[0]), np.log(n_points))))
+        pts, corners = _box_scan(rng, n)
+        sid = f"frame_{i}_car_0"
+        write_pcd(os.path.join(cars, f"{sid}.pcd"), pts)
+        np.savetxt(os.path.join(boxes, f"{sid}.txt"), corners, fmt="%.6f")
+        ids.append(sid)
+    os.makedirs(os.path.join(root, "datasets"), exist_ok=True)
+    with open(os.path.join(root, "datasets", "KITTI.json"), "w") as f:
+        json.dump([{"taxonomy_id": KITTI_CAR, "taxonomy_name": "car", "test": ids}], f)
+    return ids

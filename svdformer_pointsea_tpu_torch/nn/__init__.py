@@ -21,7 +21,11 @@ from svdformer_pointsea_tpu_torch.nn.layers import (
     EdgeConv,
     MLPConv,
     MultiheadAttention,
+    PointNetFeatureExtractor,
+    PointNetFPModule,
+    PointNetSAModule,
     PointNetSAModuleKNN,
+    PointNetSAModuleMSG,
     PointSeaSDGDecoder,
     SDGDecoder,
     SelfAttentionBlock,
@@ -56,7 +60,11 @@ __all__ = [
     "EdgeConv",
     "MLPConv",
     "MultiheadAttention",
+    "PointNetFeatureExtractor",
+    "PointNetFPModule",
+    "PointNetSAModule",
     "PointNetSAModuleKNN",
+    "PointNetSAModuleMSG",
     "PointSeaSDGDecoder",
     "SDGDecoder",
     "SelfAttentionBlock",

@@ -31,7 +31,18 @@ from svdformer_pointsea_tpu_torch.nn.flash import (
     naive_attention,
 )
 from svdformer_pointsea_tpu_torch.nn.precision import mixed_precision_enabled
-from svdformer_pointsea_tpu_torch.ops import group_local, sample_and_group_all, sample_and_group_knn
+from svdformer_pointsea_tpu_torch.ops import (
+    ball_query,
+    furthest_point_sample,
+    gather_points,
+    group_local,
+    grouping_operation,
+    sample_and_group_all,
+    sample_and_group_ball,
+    sample_and_group_knn,
+    three_interpolate,
+    three_nn,
+)
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 BN_EPS = 1e-5
@@ -392,3 +403,129 @@ class PointNetSAModuleKNN(nn.Module):
             new_points = self.pcsa(new_points)
         new_points = new_points.amax(dim=2)
         return (new_xyz, new_points, idx) if self.if_idx else (new_xyz, new_points)
+
+
+def _group_width(in_channel: int, use_xyz: bool) -> int:
+    """The width of a group's rows: the features, after the centred
+    coordinates with ``use_xyz``; the coordinates alone without features."""
+    return in_channel + 3 if use_xyz or in_channel == 0 else in_channel
+
+
+class PointNetSAModule(nn.Module):
+    """PointNet++ set abstraction with ball-query groups: xyz (B, N, 3),
+    points (B, N, in_channel) or None -> new_xyz (B, npoint, 3), new_points
+    (B, npoint, mlp[-1]); BatchNorm and ReLU after every layer. ``group_all``
+    makes one group of every point."""
+
+    def __init__(self, npoint: Optional[int], nsample: Optional[int], radius: Optional[float],
+                 in_channel: int, mlp: Sequence[int], if_bn: bool = True,
+                 group_all: bool = False, use_xyz: bool = True):
+        super().__init__()
+        self.npoint, self.nsample, self.radius = npoint, nsample, radius
+        self.group_all, self.use_xyz = group_all, use_xyz
+        self.mlp = SharedMLP(_group_width(in_channel, use_xyz), mlp, if_bn=if_bn, last_act=True)
+
+    def forward(self, xyz, points):
+        if self.group_all:
+            new_xyz, new_points, _, _ = sample_and_group_all(xyz, points, self.use_xyz)
+        else:
+            new_xyz, new_points, _, _ = sample_and_group_ball(
+                xyz, points, self.npoint, self.nsample, self.radius, self.use_xyz)
+        return new_xyz, self.mlp(new_points).amax(dim=2)
+
+
+class PointNetSAModuleMSG(nn.Module):
+    """Multi-scale-grouping set abstraction: FPS picks ``npoint`` centres
+    once; scale i ball-queries ``nsamples[i]`` points within ``radii[i]``,
+    runs ``mlp{i}`` (BatchNorm and ReLU after every layer) and max-pools; the
+    scales' features concatenate. ``npoint`` None: every scale sees the whole
+    cloud, and new_xyz is None. Points None needs ``use_xyz``."""
+
+    def __init__(self, npoint: Optional[int], radii: Sequence[float], nsamples: Sequence[int],
+                 in_channel: int, mlps: Sequence[Sequence[int]], if_bn: bool = True,
+                 use_xyz: bool = True):
+        super().__init__()
+        assert len(radii) == len(nsamples) == len(mlps)
+        self.npoint, self.radii, self.nsamples, self.use_xyz = npoint, radii, nsamples, use_xyz
+        self.n = len(mlps)
+        for i, mlp in enumerate(mlps):
+            self.add_module(f"mlp{i}", SharedMLP(_group_width(in_channel, use_xyz), mlp,
+                                                 if_bn=if_bn, last_act=True))
+
+    def forward(self, xyz, points):
+        if self.npoint is None:
+            new_xyz = None
+            groups = [sample_and_group_all(xyz, points, self.use_xyz)[1]] * self.n
+        else:
+            assert points is not None or self.use_xyz, (
+                "PointNetSAModuleMSG: points=None with use_xyz=False leaves the MLP no input")
+            new_xyz = gather_points(xyz, furthest_point_sample(xyz, self.npoint))
+            groups = []
+            for radius, nsample in zip(self.radii, self.nsamples):
+                idx = ball_query(radius, nsample, xyz, new_xyz)
+                grouped = grouping_operation(xyz, idx) - new_xyz[:, :, None, :]
+                if points is not None:
+                    feats = grouping_operation(points, idx)
+                    grouped = torch.cat([grouped, feats], dim=-1) if self.use_xyz else feats
+                groups.append(grouped)
+        return new_xyz, torch.cat([getattr(self, f"mlp{i}")(g).amax(dim=2)
+                                   for i, g in enumerate(groups)], dim=-1)
+
+
+class PointNetFeatureExtractor(nn.Module):
+    """Vanilla PointNet: per-point linear ``conv{i}`` layers, each with an
+    optional BatchNorm ``bn{i}``, ReLU on all but the last; the max over the
+    points is the global feature (B, feat_size). Without ``global_feat`` it
+    is broadcast back and concatenated, global first, with the first layer's
+    activated features: (B, N, feat_size + layer_dims[0])."""
+
+    def __init__(self, in_channels: int = 3, feat_size: int = 1024,
+                 layer_dims: Sequence[int] = (64, 128), global_feat: bool = True,
+                 batchnorm: bool = True):
+        super().__init__()
+        assert len(layer_dims) >= 1, "layer_dims must be non-empty"
+        self.dims = (*layer_dims, feat_size)
+        self.global_feat, self.batchnorm = global_feat, batchnorm
+        for i, f in enumerate(self.dims):
+            self.add_module(f"conv{i}", nn.Linear(in_channels, f))
+            if batchnorm:
+                self.add_module(f"bn{i}", BatchNorm(f))
+            in_channels = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        local = None
+        for i in range(len(self.dims)):
+            x = getattr(self, f"conv{i}")(x)
+            if self.batchnorm:
+                x = getattr(self, f"bn{i}")(x)
+            if i < len(self.dims) - 1:
+                x = F.relu(x)
+            if i == 0:
+                local = x
+        g = x.amax(dim=1)
+        if self.global_feat:
+            return g
+        return torch.cat([g[:, None, :].expand(-1, x.shape[1], -1), local], dim=-1)
+
+
+class PointNetFPModule(nn.Module):
+    """PointNet++ feature propagation: the features ``points2`` (B, M, C2)
+    of ``xyz2`` interpolated onto ``xyz1`` (B, N, 3) from the 3 nearest with
+    inverse-distance weights (distances floored at 1e-10), concatenated with
+    ``points1`` (B, N, C1) when ``use_points1``, through an MLP with
+    BatchNorm and ReLU after every layer. ``in_channel`` = C2 (+ C1)."""
+
+    def __init__(self, in_channel: int, mlp: Sequence[int], use_points1: bool = False,
+                 if_bn: bool = True):
+        super().__init__()
+        self.use_points1 = use_points1
+        self.mlp = SharedMLP(in_channel, mlp, if_bn=if_bn, last_act=True)
+
+    def forward(self, xyz1, xyz2, points1, points2):
+        dist, idx = three_nn(xyz1, xyz2)
+        recip = 1.0 / dist.clamp_min(1e-10)
+        weight = recip / (recip[..., 0:1] + recip[..., 1:2] + recip[..., 2:3])
+        interp = three_interpolate(points2, idx, weight)
+        if self.use_points1:
+            interp = torch.cat([interp, points1], dim=-1)
+        return self.mlp(interp)

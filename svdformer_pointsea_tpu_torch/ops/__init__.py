@@ -1,5 +1,6 @@
 """Point-cloud ops. Each op with a kernel (FPS: K2, NN distance: K1) runs it
-on CUDA tensors and its plain PyTorch version on CPU tensors."""
+on CUDA tensors and its plain PyTorch version on CPU tensors; the EMD
+auction, ball query and 3-NN are torch ops on both."""
 
 from svdformer_pointsea_tpu_torch.ops.distances import (
     chamfer_distance,
@@ -9,6 +10,13 @@ from svdformer_pointsea_tpu_torch.ops.distances import (
     nn_squared_distance,
     query_knn,
     square_distance,
+    three_interpolate,
+    three_nn,
+)
+from svdformer_pointsea_tpu_torch.ops.emd import (
+    earth_mover_distance,
+    emd_convergence,
+    emd_unassigned,
 )
 from svdformer_pointsea_tpu_torch.ops.fps import (
     fps_launch_plan,
@@ -18,10 +26,12 @@ from svdformer_pointsea_tpu_torch.ops.fps import (
     gather_points,
 )
 from svdformer_pointsea_tpu_torch.ops.grouping import (
+    ball_query,
     group_local,
     grouping_operation,
     index_points,
     sample_and_group_all,
+    sample_and_group_ball,
     sample_and_group_knn,
 )
 from svdformer_pointsea_tpu_torch.ops.metrics import density_aware_chamfer, fscore
@@ -34,15 +44,22 @@ __all__ = [
     "nn_squared_distance",
     "query_knn",
     "square_distance",
+    "three_interpolate",
+    "three_nn",
+    "earth_mover_distance",
+    "emd_convergence",
+    "emd_unassigned",
     "fps_launch_plan",
     "fps_subsample",
     "furthest_point_sample",
     "furthest_point_sample_ref",
     "gather_points",
+    "ball_query",
     "group_local",
     "grouping_operation",
     "index_points",
     "sample_and_group_all",
+    "sample_and_group_ball",
     "sample_and_group_knn",
     "density_aware_chamfer",
     "fscore",

@@ -6,7 +6,9 @@ Semantics of svdformer_pointsea_tpu/ops/distances.py:
 - ``nn_squared_distance`` / ``chamfer_distance``: per-query min squared
   distance and int32 argmin (lowest index on ties), with the CUDA chamfer's
   backward: ``±2·g·(p − q[argmin])`` scattered into both clouds (in a fixed
-  order on CUDA, ``ops/scatter.py``).
+  order on CUDA, ``ops/scatter.py``);
+- ``three_nn`` / ``three_interpolate``: PointNet++'s 3 nearest known points
+  (sqrt distances, ties to the lowest index) and their weighted features.
 
 The one-way NN search launches kernel K1 (``csrc/nn_distance.cu``) on a CUDA
 tensor, with the launch plan of ``nn_launch_plan``, and runs
@@ -21,7 +23,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from svdformer_pointsea_tpu_torch import kernels
-from svdformer_pointsea_tpu_torch.ops.scatter import scatter_add_rows
+from svdformer_pointsea_tpu_torch.ops.scatter import gather_rows, scatter_add_rows
 
 # Cap on the (B, chunk, M) f32 distance tiles the plain NN search holds at
 # once (several temporaries of that size are live), so 16384 x 16384 at
@@ -215,3 +217,22 @@ def chamfer_distance(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """(d1 (B, N), d2 (B, M), idx1, idx2): squared nearest distances both ways
     and int32 argmins, the chamfer_3DDist contract."""
     return _ChamferDistance.apply(xyz1, xyz2)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """The 3 nearest ``known`` (B, M, 3) points of each ``unknown`` (B, N, 3)
+    point: (B, N, 3) sqrt distances, ascending, and (B, N, 3) int32 indices;
+    equal distances go to the lowest index (a stable sort), as ``lax.top_k``
+    orders them."""
+    d, idx = torch.sort(square_distance(unknown, known), dim=-1, stable=True)
+    return d[..., :3].clamp_min(0.0).sqrt(), idx[..., :3].int()
+
+
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """(B, M, C) features of the known points at (B, N, 3) indices, summed
+    with (B, N, 3) weights: (B, N, C). The gather's backward adds in a fixed
+    order on CUDA (``ops/scatter.py``)."""
+    B, N, _ = idx.shape
+    g = gather_rows(points, idx.reshape(B, -1)).reshape(B, N, 3, points.shape[-1])
+    w = weight[..., None]
+    return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]

@@ -1,11 +1,13 @@
-"""Evaluation, the train steps, the PCN, ShapeNet-55 and GeoSpecNet
-orchestration, the adversarial steps, checkpoints and weight conversion."""
+"""Evaluation, the train steps, the orchestration of every track, the
+adversarial steps, checkpoints, weight conversion and the completion of a
+user's scans (``infer_files``)."""
 
 from svdformer_pointsea_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_checkpoint,
     save_checkpoint,
 )
+from svdformer_pointsea_tpu_torch.train.infer import infer_files
 from svdformer_pointsea_tpu_torch.train.loop import (
     build_model,
     init_state,
@@ -26,6 +28,7 @@ __all__ = [
     "CheckpointManager",
     "TrainState",
     "build_model",
+    "infer_files",
     "init_state",
     "load_weights_into_state",
     "make_lr_fn",

@@ -1,19 +1,22 @@
 """Evaluation: render -> SVDFormer forward -> per-sample metrics and the
 per-category table (semantics of svdformer_pointsea_tpu/train/evaluate.py).
 PCN scores the given partials by CD-L1×10³ / DCD / F1; ShapeNet-55 crops each
-complete cloud at the 8 fixed corners and scores CD-L2×10³ / DCD / F1."""
+complete cloud at the 8 fixed corners and scores CD-L2×10³ / DCD / F1; KITTI,
+which has no ground truth, scores each completion's fidelity to its scan."""
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from svdformer_pointsea_tpu_torch.data.crop import FIXED_CORNERS, crop_fixed
+from svdformer_pointsea_tpu_torch.data.io import write_pcd
 from svdformer_pointsea_tpu_torch.losses import calc_cd, calc_dcd
-from svdformer_pointsea_tpu_torch.ops import fps_subsample
+from svdformer_pointsea_tpu_torch.ops import fps_subsample, nn_squared_distance
 from svdformer_pointsea_tpu_torch.render import make_renderer
 from svdformer_pointsea_tpu_torch.utils import AverageMeter
 
@@ -114,6 +117,48 @@ def eval_55(cfg, model: torch.nn.Module, loader, logger=None, epoch: int = 0,
         for m in eval_fn(gt, corners).cpu().numpy():
             tables.add(batch, m)
     return tables.report(logger, epoch, mean_class=True)
+
+
+def make_kitti_eval_fn(model: torch.nn.Module, render):
+    """partial (B, N, 3) -> (completion (B, M, 3), fidelity (B,)), rendering
+    and running ``model`` in eval mode under inference mode. Fidelity is the
+    mean distance from each real point of the scan to its nearest point of
+    the completion; the rows the loader padded with zeros (sum |p| = 0) are
+    left out of the mean."""
+    disable_tf32()
+    model.eval()
+
+    def eval_fn(partial: torch.Tensor):
+        with torch.inference_mode():
+            completion = model(partial, render.get_img(partial))[-1]
+            d = nn_squared_distance(partial, completion).sqrt()
+            real = (partial.abs().sum(-1) > 0).to(d.dtype)
+            return completion, (d * real).sum(1) / real.sum(1).clamp_min(1.0)
+
+    return eval_fn
+
+
+def eval_kitti(cfg, model: torch.nn.Module, loader, out_dir: Optional[str] = None) -> float:
+    """KITTI's zero-shot evaluation on the model's device: the mean fidelity
+    over the valid rows of ``loader``'s batches (``data["partial_cloud"]``,
+    pose-normalised scans), printed as ``KITTI\t<n>\tfidelity\t<mean>`` and
+    returned; with ``out_dir`` each completion is written to
+    ``<out_dir>/<model_id>.pcd``."""
+    device = next(model.parameters()).device
+    eval_fn = make_kitti_eval_fn(model, make_renderer(cfg))
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    meter = AverageMeter(["fidelity"])
+    for batch in loader:
+        partial = torch.as_tensor(batch.data["partial_cloud"], dtype=torch.float32, device=device)
+        completion, fidelity = (x.float().cpu().numpy() for x in eval_fn(partial))
+        for i in range(batch.valid):
+            meter.update([float(fidelity[i])])
+            if out_dir:
+                write_pcd(os.path.join(out_dir, f"{batch.model_ids[i]}.pcd"), completion[i])
+    logging.info("KITTI cars: %d samples, mean fidelity %.6f", meter.count(0), meter.avg(0))
+    print(f"KITTI\t{meter.count(0)}\tfidelity\t{meter.avg(0):.6f}")
+    return meter.avg(0)
 
 
 class _Tables:

@@ -1,9 +1,9 @@
-"""Orchestration of the PCN, ShapeNet-55, GeoSpecNet and PointSea tracks:
-model and train-state construction, ``train_net``, GeoSpecNet's
+"""Orchestration of the PCN, ShapeNet-55, GeoSpecNet, PointSea and KITTI
+tracks: model and train-state construction, ``train_net``, GeoSpecNet's
 ``train_net_gan`` and ``test_net`` (semantics of
 svdformer_pointsea_tpu/train/loop.py and ``train_net_gan`` of
 svdformer_pointsea_tpu/train/gan.py). PointSea runs the PCN loop with its
-realistic renderer (``render.make_renderer``).
+realistic renderer (``render.make_renderer``); KITTI is evaluation only.
 
 The model is built on the CUDA card unless the caller names another device;
 without a card and without ``device``, :func:`build_model` (and so
@@ -27,7 +27,7 @@ from svdformer_pointsea_tpu_torch.nn import GeoSpecNet, PointSea, SVDFormer, ini
 from svdformer_pointsea_tpu_torch.nn.precision import mixed_precision
 from svdformer_pointsea_tpu_torch.render import make_renderer
 from svdformer_pointsea_tpu_torch.train.checkpoint import CheckpointManager, restore_checkpoint
-from svdformer_pointsea_tpu_torch.train.evaluate import eval_55, eval_pcn
+from svdformer_pointsea_tpu_torch.train.evaluate import eval_55, eval_kitti, eval_pcn
 from svdformer_pointsea_tpu_torch.train.gan import (
     create_adv55_state,
     create_gan_state,
@@ -93,9 +93,8 @@ def check_supported(cfg) -> None:
     """Refuse, with the ROADMAP item that ports it, a configuration this
     port does not run: nothing is ignored silently."""
     t = cfg.train
-    if cfg.data.name not in ("ShapeNet", "ShapeNet55"):
-        raise NotImplementedError(f"the {cfg.data.name} track is not ported (ROADMAP queue A "
-                                  "item 13 for KITTI)")
+    if cfg.data.name not in ("ShapeNet", "ShapeNet55", "KITTI"):
+        raise ValueError(f"dataset must be ShapeNet, ShapeNet55 or KITTI, got {cfg.data.name!r}")
     if cfg.network.model not in _MODELS:
         raise ValueError(f"model must be one of {sorted(_MODELS)}, got {cfg.network.model!r}")
     if t.adv_enabled and cfg.data.name != "ShapeNet55":
@@ -147,6 +146,9 @@ def train_net_gan(cfg, max_epochs: Optional[int] = None, max_steps: Optional[int
 def _train(cfg, max_epochs: Optional[int], max_steps: Optional[int], device: Optional[str],
            gan: bool):
     check_supported(cfg)
+    if cfg.data.name == "KITTI":
+        raise NotImplementedError("KITTI is an evaluation-only track (its scans have no ground "
+                                  "truth): evaluate a PCN-trained checkpoint with main_kitti")
     is_55 = cfg.data.name == "ShapeNet55"
     if gan and is_55:
         raise ValueError("train_net_gan trains on PCN data; the ShapeNet-55 track's adversarial "
@@ -295,8 +297,9 @@ def test_net(cfg, mode: Optional[str] = None, device: Optional[str] = None) -> f
     """Evaluation of ``cfg.weights`` on the test split: the per-category
     table (PCN: CD-L1×10³ / DCD / F1; ShapeNet-55: CD-L2×10³ / DCD / F1 over
     the 8 corners at crop difficulty ``mode``, default ``cfg.data.mode``);
-    returns the mean CD. ``cfg.train.precision`` "bf16" evaluates in bf16
-    mode."""
+    returns the mean CD. KITTI: the mean fidelity (``eval_kitti``), each
+    completion written under ``<cfg.out_path>/benchmark``.
+    ``cfg.train.precision`` "bf16" evaluates in bf16 mode."""
     check_supported(cfg)
     device = resolve_device(device)
     set_seed(cfg.seed)
@@ -307,5 +310,8 @@ def test_net(cfg, mode: Optional[str] = None, device: Optional[str] = None) -> f
                         shuffle=False, num_workers=cfg.data.num_workers)
         if cfg.data.name == "ShapeNet55":
             return eval_55(cfg, state.model, loader, mode=mode)
+        if cfg.data.name == "KITTI":
+            out_dir = os.path.join(cfg.out_path, "benchmark") if cfg.out_path else None
+            return eval_kitti(cfg, state.model, loader, out_dir=out_dir)
         return eval_pcn(cfg, state.model, loader)
 

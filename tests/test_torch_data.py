@@ -13,8 +13,8 @@ from svdformer_pointsea_tpu.data import datasets as jdatasets
 from svdformer_pointsea_tpu.data import io as jio
 from svdformer_pointsea_tpu.data import pipeline as jpipeline
 from svdformer_pointsea_tpu.data import transforms as jtransforms
-from svdformer_pointsea_tpu_torch.configs import pcn_config
-from svdformer_pointsea_tpu_torch.data import Loader, make_dataset, read_pcd, write_pcd
+from svdformer_pointsea_tpu_torch.configs import kitti_config, pcn_config
+from svdformer_pointsea_tpu_torch.data import KITTIDataset, Loader, make_dataset, read_pcd, write_pcd
 from svdformer_pointsea_tpu_torch.data import transforms
 from svdformer_pointsea_tpu_torch.data.synthetic import write_pcn_tree
 
@@ -103,7 +103,13 @@ def test_loader_batches_match_jax_bit_for_bit(tree, subset):
         assert any(not np.array_equal(a, b.data["partial_cloud"]) for a, b in zip(first, got))
 
 
-def test_make_dataset_refuses_other_tracks(tree):
+def test_make_dataset_refuses_other_tracks(tree, tmp_path):
+    """KITTI builds a KITTIDataset (over its test ids, whatever the subset);
+    a name the port does not know still raises."""
     cfg, _ = _configs(tree)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_dataset(cfg.replace(data=dataclasses.replace(cfg.data, name="KITTI")), "train")
+    (tmp_path / "KITTI.json").write_text('[{"taxonomy_id": "02958343", "test": ["a", "b"]}]')
+    kitti = make_dataset(cfg.replace(data=dataclasses.replace(
+        kitti_config().data, category_file=str(tmp_path / "KITTI.json"))), "train")
+    assert isinstance(kitti, KITTIDataset) and [s.model_id for s in kitti.samples] == ["a", "b"]
+    with pytest.raises(NotImplementedError, match="unknown"):
+        make_dataset(cfg.replace(data=dataclasses.replace(cfg.data, name="ModelNet")), "train")

@@ -18,6 +18,8 @@ from svdformer_pointsea_tpu_torch.nn.layers import (
 )
 from svdformer_pointsea_tpu_torch.ops import (
     chamfer_distance,
+    earth_mover_distance,
+    emd_convergence,
     group_local,
     index_points,
     query_knn,
@@ -27,6 +29,7 @@ from svdformer_pointsea_tpu_torch.ops import (
     nn_one_way_plain,
     nn_squared_distance,
     scatter,
+    three_interpolate,
 )
 from svdformer_pointsea_tpu_torch.ops.distances import (
     NnPlan,
@@ -974,3 +977,76 @@ def test_cuda_scatters_are_reproducible(cuda, site, monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(first, again)), site
     monkeypatch.setattr(scatter, "_fixed_order", lambda x: False)
     _assert_same_sums(first, run())
+
+
+def _kitti_partials(n_valid: int, batch: int = 4, n: int = 2048, gen=None) -> torch.Tensor:
+    """KITTI-like inputs: ``n_valid`` real points a row, the rest zero rows
+    (RandomSamplePoints' padding), a scan of pose-normalised size."""
+    x = torch.zeros(batch, n, 3, device="cuda")
+    x[:, :n_valid] = (torch.rand(batch, n_valid, 3, device="cuda", generator=gen) - 0.5) * 0.8
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [512, 128])
+@pytest.mark.parametrize("valid", [60, 137, 300, 511])
+def test_fps_kernel_on_zero_padded_kitti_scans(cuda, valid, m):
+    """Fewer real points than picks (a KITTI scan at SA1): once every real
+    point is taken, each later pick falls back to index 0, under C = 1, 2, 4
+    and 8, as the plain version picks."""
+    x = _kitti_partials(valid, gen=cuda)
+    want = furthest_point_sample_ref(x, m)
+    for c in (1, 2, 4, 8):
+        plan = fps_launch_plan(x.shape[0], x.shape[1], m, H100_SMS, cluster=c)
+        assert torch.equal(_fps_kernel(x, m, plan), want), plan
+    if valid < m:
+        assert not want[:, valid:].any()
+
+
+@pytest.mark.cuda
+def test_nn_distance_kernel_with_zero_padded_queries(cuda):
+    """KITTI's fidelity: zero-padded scans (B 12 x 2048) into 16384-point
+    completions, bit for bit."""
+    a = torch.cat([_kitti_partials(v, batch=3, gen=cuda) for v in (60, 137, 300, 2048)])
+    b = torch.rand(12, 16384, 3, device="cuda", generator=cuda) - 0.5
+    d, i = nn_one_way(a, b)
+    dp, ip = nn_one_way_plain(a, b)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+@pytest.mark.cuda
+def test_emd_on_the_card_matches_the_cpu(cuda):
+    """The auction on quantized coordinates (multiples of 2^-6, where the
+    distances are exact): dist, assignment, iterations used and the gradient
+    bit for bit between the card and the CPU, at the train point."""
+    x1 = torch.randint(0, 64, (4, 1024, 3), device="cuda", generator=cuda) / 64.0
+    x2 = torch.randint(0, 64, (4, 1024, 3), device="cuda", generator=cuda) / 64.0
+    got = emd_convergence(x1, x2, 0.005, 50)
+    want = emd_convergence(x1.cpu(), x2.cpu(), 0.005, 50)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        a = x1.detach().to(dev).requires_grad_(True)
+        dist, _ = earth_mover_distance(a, x2.to(dev), 0.005, 50)
+        dist.sum().backward()
+        grads.append(a.grad.cpu())
+    assert torch.equal(*grads)
+
+
+@pytest.mark.cuda
+def test_three_interpolate_backward_is_reproducible(cuda):
+    """The gather's backward adds in a fixed order on CUDA: two backward
+    passes give the same bits, within 1e-5 of the CPU's index_add_."""
+    points = torch.randn(8, 512, 64, device="cuda", generator=cuda)
+    idx = torch.randint(0, 512, (8, 2048, 3), device="cuda", generator=cuda)
+    idx[:, :256] = 7  # a row gathered many times
+    weight = torch.rand(8, 2048, 3, device="cuda", generator=cuda)
+    cot = torch.randn(8, 2048, 64, device="cuda", generator=cuda)
+    grads = []
+    for dev in ("cuda", "cuda", "cpu"):
+        p = points.detach().to(dev).requires_grad_(True)
+        three_interpolate(p, idx.to(dev), weight.to(dev)).backward(cot.to(dev))
+        grads.append(p.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], grads[2], rtol=1e-5, atol=1e-5)

@@ -257,7 +257,9 @@ def test_port_imports_without_jax():
         "'svdformer_pointsea_tpu_torch.nn.discriminator', 'svdformer_pointsea_tpu_torch.cli', "
         "'svdformer_pointsea_tpu_torch.kernels', 'svdformer_pointsea_tpu_torch.train.loop', "
         "'svdformer_pointsea_tpu_torch.nn.geospecnet', 'svdformer_pointsea_tpu_torch.ops.scatter', "
-        "'svdformer_pointsea_tpu_torch.nn.pointsea', 'svdformer_pointsea_tpu_torch.render.realistic'} "
+        "'svdformer_pointsea_tpu_torch.nn.pointsea', 'svdformer_pointsea_tpu_torch.render.realistic', "
+        "'svdformer_pointsea_tpu_torch.ops.emd', 'svdformer_pointsea_tpu_torch.train.infer', "
+        "'svdformer_pointsea_tpu_torch.utils.viz'} "
         "<= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'svdformer_pointsea_tpu')]\n"

@@ -165,17 +165,20 @@ def test_main_pcn_parses_the_jax_flags(monkeypatch):
 
 @pytest.mark.parametrize("argv,message", [
     (["--sp", "2"], "item 15"), (["--dp", "shard_map"], "item 15"),
-    (["--complete", "scan.pcd"], "item 13"), (["--test"], "--weights"),
+    (["--complete", "scan.pcd"], "--weights"), (["--test"], "--weights"),
     (["--inference"], "--weights")])
 def test_main_pcn_refuses_what_is_not_ported(argv, message):
+    """What is not ported (multi-GPU) refuses with its ROADMAP item; what
+    needs a checkpoint (--test, --inference, --complete) refuses without
+    --weights."""
     with pytest.raises(SystemExit, match=message):
         cli.main_pcn(argv, device="cpu")
 
 
 def test_cli_takes_the_pcn_track_only(monkeypatch):
-    """The tracks the port has dispatch (``pcn``, ``55``, ``geospec`` and
-    ``pointsea``, to their main_*); KITTI refuses with the ROADMAP item that
-    ports it."""
+    """Every track dispatches (``pcn``, ``55``, ``geospec``, ``pointsea`` and
+    ``kitti``, to their main_*; kitti always evaluates); no track raises the
+    usage line."""
     calls = []
     monkeypatch.setattr(port_train, "test_net", lambda cfg, device=None, mode=None: calls.append(
         (cfg.data.name, cfg.network.model, mode)))
@@ -183,29 +186,33 @@ def test_cli_takes_the_pcn_track_only(monkeypatch):
     cli.main(["pcn", "--test", "--weights", "w.pt"])
     cli.main(["geospec", "--test", "--weights", "w.pt"])
     cli.main(["pointsea", "--test", "--weights", "w.pt"])
+    cli.main(["kitti", "--weights", "w.pt"])
     assert calls == [("ShapeNet55", "svdformer", "hard"), ("ShapeNet", "svdformer", None),
-                     ("ShapeNet", "geospecnet", None), ("ShapeNet", "pointsea", None)]
-    for argv in (["kitti"], []):
-        with pytest.raises(SystemExit, match="item 13"):
+                     ("ShapeNet", "geospecnet", None), ("ShapeNet", "pointsea", None),
+                     ("KITTI", "svdformer", None)]
+    for argv in (["kittix"], []):
+        with pytest.raises(SystemExit, match="usage"):
             cli.main(argv)
 
 
 def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
-    """Without a card and without device="cpu", main_pcn, train_net and
-    test_net raise before reading any data; a configuration the port does
-    not run raises with its ROADMAP item."""
+    """Without a card and without device="cpu", main_pcn, main_kitti,
+    train_net and test_net raise before reading any data; a configuration
+    the port does not run raises with its ROADMAP item, and KITTI, which has
+    no ground truth, is refused training."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)  # no dataset here
     cfg = pcn_config()
     for run in (lambda: cli.main_pcn([]), lambda: port_train.train_net(cfg),
-                lambda: port_train.test_net(cfg.replace(weights="w.pt"))):
+                lambda: port_train.test_net(cfg.replace(weights="w.pt")),
+                lambda: cli.main_kitti(["--weights", "w.pt"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run()
     for train, item in (({"sp": 2}, "item 15"), ({"dp": "shard_map"}, "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             port_train.train_net(cfg.replace(train=dataclasses.replace(cfg.train, **train)),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):  # the KITTI track
+    with pytest.raises(NotImplementedError, match="evaluation-only"):  # the KITTI track
         port_train.train_net(cfg.replace(data=dataclasses.replace(cfg.data, name="KITTI")),
                              device="cpu")
     # PointSea passes the checks and stops at the device, before any data.
